@@ -1,0 +1,449 @@
+"""FUNcube 1200 bps BPSK telemetry demodulator — the PyTorch port of
+:mod:`jsdr_tpu.demod.bpsk` ("pattern" tuning mode).
+
+Per block of [S, T] stream rows (T a multiple of 8*decim):
+
+1. tuner NCO mix + 27-tap decimating FIR, x 0.9*32768 — ONE kernel,
+   :func:`jsdr_tpu_torch.ops.mix_decimate.mix_decimate` (the NCO's
+   quantized-table index sequence is 128-periodic for every tuning that
+   ``pattern_mix_ok`` accepts, e.g. any multiple of 750 Hz at 96 kS/s);
+2. 1200 Hz VCO mix (exactly pi/4 per decimated sample) and the 65-tap
+   matched filter with its carried tail (plain torch);
+3. bit-timing recovery — the second kernel,
+   :func:`jsdr_tpu_torch.ops.timing_kernel.timing_recover_batch`;
+4. bit compaction, stride-80 sync correlation at every bit position and
+   soft-window extraction (plain torch).
+
+Values, layouts and carried state match the reference; where the JAX code
+avoids TPU gathers (one-hot row matmuls, masked reductions) this port
+indexes directly. The "general" and "static" mix modes, the FFT
+auto-tuner (``dofft``), ``compat_scan`` and ``fuse_mf`` are not ported
+yet and raise ``NotImplementedError`` (ROADMAP.md, queue 2).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from jsdr_tpu.fec.tables import SYNC_VECTOR
+
+from ..ops.cplx import CF
+from ..ops.fir import fir_apply_streaming
+from ..ops.mix_decimate import mix_decimate
+from ..ops.timing_kernel import timing_recover_batch
+
+# Constants copied from jsdr_tpu/demod/bpsk.py:52-107 (that module imports
+# jax); tests/test_torch_constants.py holds them equal to the reference.
+DOWN_SAMPLE_RATE = 9600
+BIT_RATE = 1200
+SAMPLES_PER_BIT = DOWN_SAMPLE_RATE // BIT_RATE          # 8
+HOWARD_FUDGE_FACTOR = 0.9 * 32768.0                      # :56, :469
+BIT_SMOOTH1 = 1.0 / 200.0
+BIT_SMOOTH2 = 1.0 / 800.0
+ENERGY_GATE = 100.0                                      # :544
+SYNC_THRESHOLD = 45                                      # :560
+FEC_BITS = 5200
+SINCOS_SIZE = 256
+TWO_PI = 2.0 * np.pi
+
+# 27-tap decimation low-pass (FUNcubeBPSKDemod.java:27-55)
+DS_FILTER = np.array([
+    -6.103515625000e-004, -1.220703125000e-004, +2.380371093750e-003,
+    +6.164550781250e-003, +7.324218750000e-003, +7.629394531250e-004,
+    -1.464843750000e-002, -3.112792968750e-002, -3.225708007813e-002,
+    -1.617431640625e-003, +6.463623046875e-002, +1.502380371094e-001,
+    +2.231445312500e-001, +2.518310546875e-001, +2.231445312500e-001,
+    +1.502380371094e-001, +6.463623046875e-002, -1.617431640625e-003,
+    -3.225708007813e-002, -3.112792968750e-002, -1.464843750000e-002,
+    +7.629394531250e-004, +7.324218750000e-003, +6.164550781250e-003,
+    +2.380371093750e-003, -1.220703125000e-004, -6.103515625000e-004,
+])
+
+# 65-tap root-raised-cosine matched filter (FUNcubeBPSKDemod.java:58-77)
+DM_FILTER = np.array([
+    -0.0101130691, -0.0086975143, -0.0038246093, +0.0033563764,
+    +0.0107237026, +0.0157790936, +0.0164594107, +0.0119213911,
+    +0.0030315224, -0.0076488191, -0.0164594107, -0.0197184277,
+    -0.0150109226, -0.0023082460, +0.0154712381, +0.0327423589,
+    +0.0424493086, +0.0379940454, +0.0154712381, -0.0243701991,
+    -0.0750320094, -0.1244834076, -0.1568500423, -0.1553748911,
+    -0.1061032953, -0.0015013786, +0.1568500423, +0.3572048240,
+    +0.5786381191, +0.7940228249, +0.9744923010, +1.0945250059,
+    +1.1366117829, +1.0945250059, +0.9744923010, +0.7940228249,
+    +0.5786381191, +0.3572048240, +0.1568500423, -0.0015013786,
+    -0.1061032953, -0.1553748911, -0.1568500423, -0.1244834076,
+    -0.0750320094, -0.0243701991, +0.0154712381, +0.0379940454,
+    +0.0424493086, +0.0327423589, +0.0154712381, -0.0023082460,
+    -0.0150109226, -0.0197184277, -0.0164594107, -0.0076488191,
+    +0.0030315224, +0.0119213911, +0.0164594107, +0.0157790936,
+    +0.0107237026, +0.0033563764, -0.0038246093, -0.0086975143,
+    -0.0101130691,
+])
+
+# VCO: phase advances exactly pi/4 per decimated sample
+_VCO_ANG = (np.arange(1, 9) % 8) * (TWO_PI / 8.0)   # phase of sample k ~ (k+1)
+_VCO_COS = np.cos(_VCO_ANG).astype(np.float32)
+_VCO_SIN = np.sin(_VCO_ANG).astype(np.float32)
+
+NU_SCALE = 10                 # tuner numerator units per Hz (0.1 Hz)
+
+_SYNC = np.asarray(SYNC_VECTOR, dtype=np.int32)     # [65] of +/-1
+
+
+class BpskConfig(NamedTuple):
+    rate: int = 96000          # input sample rate
+    tuning: float = 12000.0    # NCO Hz for streams without their own
+    max_hits_per_block: int = 4
+    dofft: bool = False        # FFT auto-tune front end (not ported)
+    track_high: bool = False   # auto-tune searches the upper half-band
+    compat_scan: bool = False  # per-sample timing scan (not ported)
+    fuse_mf: bool = False      # VCO + matched filter in the front-end
+                               # kernel (not ported)
+
+    @property
+    def decim(self) -> int:
+        return self.rate // DOWN_SAMPLE_RATE
+
+
+class TimingState(NamedTuple):
+    e_ema: torch.Tensor     # [S, 8] f32 smoothed bit energy per phase
+    pos: torch.Tensor       # [S] i32 dmBitPos (always 0 between blocks)
+    peak: torch.Tensor      # [S] i32 dmPeakPos
+    new_peak: torch.Tensor  # [S] i32 dmNewPeak
+    e_out: torch.Tensor     # [S] f32 dmEnergyOut
+    last_iq: torch.Tensor   # [S, 2] f32 dmLastIQ
+
+
+class FftTunerState(NamedTuple):
+    """Auto-tune EMA state (fields of ``jsdr_tpu.demod.fft_tuner.
+    FftTunerState``); carried unchanged until dofft is ported."""
+    ave_peak_power: torch.Tensor  # [S] f32
+    ave_centre_bin: torch.Tensor  # [S] f32
+    centre_bin: torch.Tensor      # [S] i32
+
+
+class BpskState(NamedTuple):
+    tu_phase: torch.Tensor  # [S] f32 tuner NCO phase numerator in
+                            # [0, NU_SCALE*rate)
+    ds_tail: CF             # [S, 26] decimator history (mixed domain)
+    vco_idx: torch.Tensor   # [S] i32 decimated-sample counter mod 8
+    mf_tail: CF             # [S, 64] matched-filter history
+    timing: TimingState
+    ring: torch.Tensor      # [S, 5199] i8 last bits (+1/-1; 0 unfilled)
+    counters: torch.Tensor  # [S, 4] i32: raw, ds, bit, fec(sync hits)
+    fft_tuner: FftTunerState
+
+
+class BpskBlockOut(NamedTuple):
+    windows: torch.Tensor   # [S, max_hits, 5200] uint8 soft symbols
+    hit_corr: torch.Tensor  # [S, max_hits] i32 sync correlation per hit
+    n_hits: torch.Tensor    # [S] i32
+    bits: torch.Tensor      # [S, max_bits] i8 +/-1 (0 pad)
+    n_bits: torch.Tensor    # [S] i32
+    energies: torch.Tensor  # [S, 2] f32: (e_out, max hit corr)
+
+
+def bpsk_init_batch(cfg: BpskConfig, n_streams: int,
+                    device: torch.device | str) -> BpskState:
+    """Fresh state for ``n_streams`` independent streams on ``device``."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros((n_streams, *shape), dtype=dtype, device=device)
+
+    i32 = torch.int32
+    return BpskState(
+        tu_phase=z(),
+        ds_tail=CF(z(len(DS_FILTER) - 1), z(len(DS_FILTER) - 1)),
+        vco_idx=z(dtype=i32),
+        mf_tail=CF(z(len(DM_FILTER) - 1), z(len(DM_FILTER) - 1)),
+        timing=TimingState(
+            e_ema=z(SAMPLES_PER_BIT), pos=z(dtype=i32), peak=z(dtype=i32),
+            new_peak=z(dtype=i32), e_out=z() + 1.0, last_iq=z(2)),
+        ring=z(FEC_BITS - 1, dtype=torch.int8),
+        counters=z(4, dtype=i32),
+        fft_tuner=FftTunerState(z(), z(), z(dtype=i32)),
+    )
+
+
+def bpsk_init(cfg: BpskConfig, device: torch.device | str) -> BpskState:
+    """Fresh state for one stream (no batch axis)."""
+    return _map_state(lambda x: x[0], bpsk_init_batch(cfg, 1, device))
+
+
+def _map_state(fn, st: BpskState) -> BpskState:
+    return BpskState(
+        fn(st.tu_phase), CF(fn(st.ds_tail.re), fn(st.ds_tail.im)),
+        fn(st.vco_idx), CF(fn(st.mf_tail.re), fn(st.mf_tail.im)),
+        TimingState(*map(fn, st.timing)), fn(st.ring), fn(st.counters),
+        FftTunerState(*map(fn, st.fft_tuner)))
+
+
+def state_from_numpy(st, device: torch.device | str) -> BpskState:
+    """A reference ``jsdr_tpu.demod.bpsk.BpskState`` whose leaves are
+    numpy arrays (``bpsk_init_batch``, or ``np.asarray`` of a JAX step's
+    output) -> this package's state on ``device``. Fields correspond by
+    name and order, so a checkpoint moves between the packages."""
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    return BpskState(
+        t(st.tu_phase), CF(t(st.ds_tail.re), t(st.ds_tail.im)),
+        t(st.vco_idx), CF(t(st.mf_tail.re), t(st.mf_tail.im)),
+        TimingState(*map(t, st.timing)), t(st.ring), t(st.counters),
+        FftTunerState(*map(t, st.fft_tuner)))
+
+
+def state_to_numpy(st: BpskState) -> BpskState:
+    """The reverse of :func:`state_from_numpy`: the same tuple structure
+    with numpy leaves (``jax.tree.unflatten`` with the reference's
+    structure rebuilds its ``BpskState``)."""
+    return _map_state(lambda x: x.cpu().numpy(), st)
+
+
+# ---------------------------------------------------------------------------
+# Tuner NCO: exact integer phase numerators in 0.1 Hz units
+# (jsdr_tpu/demod/bpsk.py:183-355). nu_k = (nu_0 + k*tu10) mod den with
+# den = NU_SCALE*rate; table index = floor(256*nu_k/den). The reference
+# keeps every intermediate inside int32 with double-and-add modmuls; the
+# port computes the same exact values in int64.
+# ---------------------------------------------------------------------------
+
+def _modmul_static(tu: torch.Tensor, m: int, den: int) -> torch.Tensor:
+    """(m * tu) mod den for int64 tu, static int m (any sign/size)."""
+    return (tu % den) * (int(m) % den) % den
+
+
+def nco_numerators(nu0: torch.Tensor, tu: torch.Tensor, n: int, den: int,
+                   start: int = 1) -> torch.Tensor:
+    """[..., n] exact numerators (nu0 + (start+i)*tu) mod den, int64."""
+    tu = tu.long() % den
+    i = torch.arange(n, dtype=torch.int64, device=tu.device)
+    base = (nu0.long() + _modmul_static(tu, start, den)) % den
+    return (base[..., None] + tu[..., None] * i % den) % den
+
+
+def _num_to_cossin(nums: torch.Tensor, den: int):
+    """Numerators -> quantized-table (cos, sin) values (:93-95)."""
+    idx = (nums * SINCOS_SIZE) // den
+    ang = idx.to(torch.float32) * float(np.float32(TWO_PI / SINCOS_SIZE))
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _nco_pattern(nu0: torch.Tensor, tu: torch.Tensor, rate: int):
+    """[S, 128] mix pattern (cos, sin) for the mix+decimate kernel; valid
+    when (128 * tu) % (NU_SCALE*rate) == 0. Streams with tu <= 0 pass
+    through un-mixed (:388, :394-396)."""
+    den = NU_SCALE * rate
+    nums = nco_numerators(nu0.long(), tu, 128, den, start=1)
+    c, s = _num_to_cossin(nums, den)
+    on = (tu > 0)[..., None]
+    return torch.where(on, c, 1.0), torch.where(on, s, 1.0)
+
+
+def _nco_advance(nu0: torch.Tensor, tu: torch.Tensor, rate: int, n: int):
+    """Carried numerator after n samples (tu <= 0: phase frozen)."""
+    den = NU_SCALE * rate
+    nu = nu0.long()
+    adv = (nu + _modmul_static(tu.long() % den, n, den)) % den
+    return torch.where(tu > 0, adv, nu).to(torch.float32)
+
+
+def tunings_to_nu(tunings) -> np.ndarray | None:
+    """Host Hz values -> exact 0.1 Hz numerator ints, or None when some
+    value is not a multiple of 0.1 Hz."""
+    t10 = np.asarray(tunings, np.float64).reshape(-1) * NU_SCALE
+    r = np.round(t10)
+    if not np.allclose(t10, r, atol=1e-6, rtol=0):
+        return None
+    return np.maximum(r, 0.0).astype(np.int32)
+
+
+def pattern_mix_ok(tunings, rate: int) -> bool:
+    """True when every stream's quantized NCO index sequence is 128-lane
+    periodic: tuning a multiple of 0.1 Hz with (128 * tu10) %
+    (NU_SCALE * rate) == 0."""
+    nu = tunings_to_nu(tunings)
+    if nu is None:
+        return False
+    return all((128 * int(v)) % (NU_SCALE * rate) == 0 for v in nu)
+
+
+# ---------------------------------------------------------------------------
+# Decimated-domain stages
+# ---------------------------------------------------------------------------
+
+def _vco_mix(ds: CF, vco_idx: torch.Tensor):
+    """bi = i*cos(vco), bq = q*sin(vco) (:515-516); vco phase = pi/4 * m.
+    ds: [S, K]; vco_idx: [S]."""
+    k = ds.shape[-1]
+    dev = ds.re.device
+    m = (vco_idx.long()[:, None]
+         + torch.arange(k, device=dev)[None, :]) % SAMPLES_PER_BIT
+    c = torch.as_tensor(_VCO_COS, device=dev)[m]
+    s = torch.as_tensor(_VCO_SIN, device=dev)[m]
+    return CF(ds.re * c, ds.im * s), ((vco_idx.long() + k) % 8).to(torch.int32)
+
+
+def _compact_bits(valid: torch.Tensor, bit: torch.Tensor, max_bits: int):
+    """Valid decisions as +/-1 int8, in order, into [S, max_bits] (0 pad);
+    n_bits = min(#valid, max_bits)."""
+    s, n = valid.shape
+    assert n < max_bits
+    pos = torch.cumsum(valid.to(torch.int64), dim=1) - 1
+    dest = torch.where(valid, pos, max_bits)   # invalids: a spare column
+    pm = torch.where(bit, 1, -1).to(torch.int8)
+    out = torch.zeros((s, max_bits + 1), dtype=torch.int8, device=valid.device)
+    out.scatter_(1, dest, pm)
+    n_bits = torch.clamp(valid.sum(dim=1), max=max_bits).to(torch.int32)
+    return out[:, :max_bits], n_bits
+
+
+def _first_k_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """[S, k] indices of the first k True entries of each row (-1 pad)."""
+    rank = torch.cumsum(mask.to(torch.int32), dim=1)
+    want = torch.arange(1, k + 1, device=mask.device)[None, :, None]
+    cand = mask[:, None, :] & (rank[:, None, :] == want)   # [S, k, N]
+    idx = torch.argmax(cand.to(torch.uint8), dim=2)
+    return torch.where(cand.any(dim=2), idx, -1)
+
+
+def sync_correlate(window_buf: torch.Tensor) -> torch.Tensor:
+    """corr[:, j] = sum_n W[:, j + 80n] * SYNC[n] for every start j in
+    [0, max_bits) (:556-559). window_buf: [S, 5199 + max_bits] of
+    +/-1/0. One dilated float32 convolution: the sums are of at most 65
+    terms of +/-1, exact in float32 (and in TF32)."""
+    max_bits = window_buf.shape[1] - (FEC_BITS - 1)
+    sync = torch.as_tensor(_SYNC, dtype=torch.float32,
+                           device=window_buf.device)
+    corr = F.conv1d(window_buf.to(torch.float32)[:, None, :],
+                    sync.view(1, 1, -1), dilation=80)
+    return corr[:, 0, :max_bits].to(torch.int32)
+
+
+def soft_frames_from_bits(bits: torch.Tensor, n_bits: torch.Tensor,
+                          ring: torch.Tensor, max_hits: int):
+    """Sync-search the bit streams and extract soft FEC windows.
+
+    bits [S, max_bits] i8, n_bits [S], ring [S, 5199] i8. Returns
+    (windows [S, max_hits, 5200] u8, hit_corr [S, max_hits] i32, n_hits
+    [S] i32, new_ring [S, 5199] i8); unused window slots are all 0x40."""
+    w = torch.cat([ring, bits], dim=1)                # [S, 5199 + max_bits]
+    s, w_len = w.shape
+    corr = sync_correlate(w)
+    j = torch.arange(corr.shape[1], device=w.device)
+    hits = (corr >= SYNC_THRESHOLD) & (j[None, :] < n_bits[:, None])
+    hit_idx = _first_k_indices(hits, max_hits)
+    hit_ok = hit_idx >= 0
+    start = torch.clamp(torch.where(hit_ok, hit_idx, 0), 0, w_len - FEC_BITS)
+    span = torch.arange(FEC_BITS, device=w.device)
+    ext = torch.gather(w[:, None, :].expand(s, max_hits, w_len), 2,
+                       start[:, :, None] + span)      # [S, max_hits, 5200]
+    windows = torch.where((ext == 1) & hit_ok[:, :, None], 0xC0, 0x40
+                          ).to(torch.uint8)
+    hit_corr = torch.where(hit_ok, corr.gather(1, start), 0).to(torch.int32)
+    n_hits = hit_ok.sum(dim=1).to(torch.int32)
+    ring_at = n_bits.long()[:, None] + span[None, :FEC_BITS - 1]
+    return windows, hit_corr, n_hits, w.gather(1, ring_at)
+
+
+# ---------------------------------------------------------------------------
+# The block step
+# ---------------------------------------------------------------------------
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to jsdr_tpu_torch yet (ROADMAP.md, queue 2); "
+        "use jsdr_tpu for it")
+
+
+def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
+                     tunings=None, dofft=None
+                     ) -> Tuple[BpskBlockOut, BpskState]:
+    """Batched telemetry chain over independent streams: [S, T] blocks.
+
+    ``iq``: CF of float32 [S, T] tensors, all on one device, which the
+    state must share; T a multiple of 8*cfg.decim. ``tunings``: host
+    array-like [S] of per-stream NCO Hz (default cfg.tuning for every
+    stream); each must satisfy ``pattern_mix_ok`` (e.g. a multiple of
+    750 Hz at 96 kS/s). ``dofft``: host bool array-like [S]
+    (default cfg.dofft); any True raises NotImplementedError. Returns the
+    block's output and the carried state."""
+    s, t_len = iq.shape
+    m = cfg.decim
+    dev = iq.re.device
+    if t_len % (8 * m):
+        raise ValueError(
+            f"block length {t_len} must be a multiple of 8*decim = {8 * m} "
+            "(timing recovery groups the decimated stream into whole "
+            "8-sample bit periods)")
+    if cfg.compat_scan:
+        raise _not_ported("compat_scan (the per-sample timing scan)")
+    if cfg.fuse_mf:
+        raise _not_ported("fuse_mf (the fused mix/decimate/matched-filter "
+                          "kernel)")
+    if np.any(cfg.dofft if dofft is None else dofft):
+        raise _not_ported("dofft (the FFT auto-tune front end)")
+    if tunings is None:
+        tunings = np.full(s, cfg.tuning, np.float64)
+    tun = np.asarray(tunings, np.float64).reshape(-1)
+    if tun.shape[0] != s:
+        raise ValueError(f"{tun.shape[0]} tunings for {s} streams")
+    if not pattern_mix_ok(tun, cfg.rate):
+        raise _not_ported(
+            f"tunings {tun.tolist()} at {cfg.rate} S/s need the 'general' "
+            "or 'static' mix mode (pattern mode needs 128*tuning*10 to be "
+            "a multiple of 10*rate)")
+    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
+
+    # front end: mix + decimate kernel
+    cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, cfg.rate)
+    tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
+    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    iq = CF(iq.re.contiguous(), iq.im.contiguous())
+    ds, ds_tail = mix_decimate(iq, cos_pat, sin_pat, taps, m,
+                               states.ds_tail, HOWARD_FUDGE_FACTOR)
+
+    # VCO mix + matched filter
+    bb, vco_idx = _vco_mix(ds, states.vco_idx)
+    mf, mf_tail = fir_apply_streaming(
+        bb, torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev),
+        states.mf_tail)
+
+    # timing recovery kernel
+    tm = states.timing
+    valid, bit, e_ema, peak, new_peak, e_out, last_iq = timing_recover_batch(
+        mf.re, mf.im, tm.e_ema, tm.peak, tm.new_peak, tm.e_out, tm.last_iq,
+        smooth1=BIT_SMOOTH1, smooth2=BIT_SMOOTH2, gate=ENERGY_GATE)
+    timing = TimingState(e_ema, tm.pos, peak, new_peak, e_out, last_iq)
+
+    # compaction, sync search, window extraction
+    ds_len = t_len // m
+    max_bits = 2 * (ds_len // SAMPLES_PER_BIT) + 2
+    bits, n_bits = _compact_bits(valid, bit, max_bits)
+    windows, hit_corr, n_hits, ring = soft_frames_from_bits(
+        bits, n_bits, states.ring, cfg.max_hits_per_block)
+    counters = states.counters + torch.stack(
+        [torch.full_like(n_bits, t_len), torch.full_like(n_bits, ds_len),
+         n_bits, n_hits], dim=1)
+    out = BpskBlockOut(
+        windows=windows, hit_corr=hit_corr, n_hits=n_hits, bits=bits,
+        n_bits=n_bits,
+        energies=torch.stack([e_out, hit_corr.max(dim=1).values.float()],
+                             dim=1))
+    new_state = BpskState(tu_phase, ds_tail, vco_idx, mf_tail, timing, ring,
+                          counters, states.fft_tuner)
+    return out, new_state
+
+
+def bpsk_block(iq: CF, cfg: BpskConfig, state: BpskState,
+               tuning=None) -> Tuple[BpskBlockOut, BpskState]:
+    """One stream's block [T] through the chain (unbatched state)."""
+    states = _map_state(lambda x: x[None], state)
+    tunings = None if tuning is None else np.asarray([tuning])
+    out, new_states = bpsk_block_batch(CF(iq.re[None], iq.im[None]), cfg,
+                                       states, tunings)
+    return (BpskBlockOut(*(x[0] for x in out)),
+            _map_state(lambda x: x[0], new_states))

@@ -1,0 +1,159 @@
+"""The port's batched telemetry chain (``bpsk_block_batch``, CPU: plain
+PyTorch versions of both kernels) against the JAX package's, over three
+chained blocks with per-stream tunings in pattern mode.
+
+Decisions and everything derived from them must be equal: windows,
+hit_corr, n_hits, bits, n_bits, counters, ring, tu_phase, vco_idx and
+the peak schedule. The float state differs by float32 rounding: the
+reference runs its FIRs as bf16x3/HIGHEST banded matmuls and its EMA as
+triangular matmuls, the port as fp32 convolutions and serial sums. So
+ds_tail (mixed samples; the quantized cos/sin may differ by an ulp
+between libraries) is held to 1e-6, mf_tail/last_iq/e_ema to 1e-5 and
+e_out (closed form vs serial) to 1e-4, each relative to the largest
+magnitude of the compared array."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jsdr_tpu.demod import bpsk as JB
+from jsdr_tpu.io.sources import synth_bpsk_stream
+from jsdr_tpu.ops.cplx import CF as JCF
+from jsdr_tpu_torch.demod import bpsk as TB
+from jsdr_tpu_torch.ops.cplx import CF
+
+CASES = [(96000, [12000.0, 9000.0, 21000.0]), (192000, [12000.0, 9000.0])]
+
+
+def _streams(rate, tunings, n_blocks=3):
+    """One AO-40 frame per stream at its own tuning (cut to the length of
+    n_blocks), 2 s blocks."""
+    t_len = 2 * rate
+    iq = np.zeros((len(tunings), n_blocks * t_len), np.complex64)
+    for s, tu in enumerate(tunings):
+        pay = np.random.default_rng(100 + s).integers(0, 256, (1, 256),
+                                                      dtype=np.uint8)
+        sig = synth_bpsk_stream(pay, rate=rate, carrier_offset=tu,
+                                preamble_bits=200, noise_rms=0.25, seed=s)
+        n = min(len(sig), iq.shape[1])
+        iq[s, :n] = sig[:n]
+    return iq.reshape(len(tunings), n_blocks, t_len)
+
+
+def _close(got, want, rel):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rel,
+                               atol=rel * float(np.abs(want).max()))
+
+
+def _assert_block_equal(out_t, st_t, out_j, st_j):
+    for name in ("windows", "hit_corr", "n_hits", "bits", "n_bits"):
+        np.testing.assert_array_equal(getattr(out_t, name).numpy(),
+                                      np.asarray(getattr(out_j, name)),
+                                      err_msg=name)
+    np.testing.assert_array_equal(out_t.energies[:, 1].numpy(),
+                                  np.asarray(out_j.energies)[:, 1])
+    for name in ("counters", "ring", "tu_phase", "vco_idx"):
+        np.testing.assert_array_equal(getattr(st_t, name).numpy(),
+                                      np.asarray(getattr(st_j, name)),
+                                      err_msg=name)
+    for name in ("peak", "new_peak", "pos"):
+        np.testing.assert_array_equal(getattr(st_t.timing, name).numpy(),
+                                      np.asarray(getattr(st_j.timing, name)))
+    for p in ("re", "im"):
+        _close(getattr(st_t.ds_tail, p), getattr(st_j.ds_tail, p), 1e-6)
+        _close(getattr(st_t.mf_tail, p), getattr(st_j.mf_tail, p), 1e-5)
+    _close(st_t.timing.e_ema, st_j.timing.e_ema, 1e-5)
+    _close(st_t.timing.last_iq, st_j.timing.last_iq, 1e-5)
+    _close(st_t.timing.e_out, st_j.timing.e_out, 1e-4)
+
+
+def _jax_block(blk, cfg, st, tunings):
+    out, st = JB.bpsk_block_batch(JCF(jnp.asarray(blk.real.copy()),
+                                      jnp.asarray(blk.imag.copy())),
+                                  cfg, st, tunings)
+    return out, jax.tree.map(np.asarray, st)
+
+
+def _port_block(blk, cfg, st, tunings):
+    x = CF(torch.from_numpy(np.ascontiguousarray(blk.real)),
+           torch.from_numpy(np.ascontiguousarray(blk.imag)))
+    return TB.bpsk_block_batch(x, cfg, st, tunings)
+
+
+@pytest.mark.parametrize("rate,tunings", CASES)
+def test_block_batch_matches_jax_over_chained_blocks(rate, tunings):
+    cfg = JB.BpskConfig(rate=rate, tuning=tunings[0])
+    tcfg = TB.BpskConfig(rate=rate, tuning=tunings[0])
+    blocks = _streams(rate, tunings)
+    st_j = JB.bpsk_init_batch(cfg, len(tunings))
+    st_t = TB.bpsk_init_batch(tcfg, len(tunings), "cpu")
+    hits = 0
+    for b in range(blocks.shape[1]):
+        out_j, st_j = _jax_block(blocks[:, b], cfg, st_j, tunings)
+        out_t, st_t = _port_block(blocks[:, b], tcfg, st_t, tunings)
+        _assert_block_equal(out_t, st_t, out_j, st_j)
+        hits += int(out_t.n_hits.sum())
+    assert hits >= len(tunings)           # every stream's frame was found
+
+
+@pytest.mark.parametrize("rate,tunings", CASES)
+def test_state_carries_between_packages(rate, tunings):
+    """JAX block 1 -> state_from_numpy -> port block 2 equals JAX block
+    2; state_to_numpy gives back the reference's structure."""
+    cfg = JB.BpskConfig(rate=rate, tuning=tunings[0])
+    tcfg = TB.BpskConfig(rate=rate, tuning=tunings[0])
+    blocks = _streams(rate, tunings, n_blocks=2)
+    st0 = JB.bpsk_init_batch(cfg, len(tunings))
+    _out1, st1 = _jax_block(blocks[:, 0], cfg, st0, tunings)
+    out2_j, st2_j = _jax_block(blocks[:, 1], cfg, st1, tunings)
+    out2_t, st2_t = _port_block(blocks[:, 1], tcfg,
+                                TB.state_from_numpy(st1, "cpu"), tunings)
+    _assert_block_equal(out2_t, st2_t, out2_j, st2_j)
+
+    back = TB.state_to_numpy(TB.state_from_numpy(st1, "cpu"))
+    rebuilt = jax.tree.unflatten(jax.tree.structure(st1),
+                                 jax.tree.leaves(back))
+    for a, b in zip(jax.tree.leaves(rebuilt), jax.tree.leaves(st1)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_unported_modes_raise():
+    cfg = TB.BpskConfig(rate=96000)
+    st = TB.bpsk_init_batch(cfg, 1, "cpu")
+    x = CF(torch.zeros(1, 9600), torch.zeros(1, 9600))
+    with pytest.raises(NotImplementedError, match="general"):
+        TB.bpsk_block_batch(x, cfg, st, [12345.0])
+    with pytest.raises(NotImplementedError, match="dofft"):
+        TB.bpsk_block_batch(x, cfg._replace(dofft=True), st)
+    with pytest.raises(NotImplementedError, match="compat_scan"):
+        TB.bpsk_block_batch(x, cfg._replace(compat_scan=True), st)
+    with pytest.raises(NotImplementedError, match="fuse_mf"):
+        TB.bpsk_block_batch(x, cfg._replace(fuse_mf=True), st)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        TB.bpsk_block_batch(CF(x.re[:, :9560], x.im[:, :9560]), cfg, st)
+
+
+def test_nco_pattern_and_advance_match_reference():
+    """Exact numerators (int64 here, int32 double-and-add there) for
+    every pattern-mode tuning class, at both rates, from a mid-stream
+    phase; cos/sin to one float32 ulp."""
+    for rate in (96000, 192000):
+        step = 750 if rate == 96000 else 1500
+        tun = np.arange(0, 24001, step, dtype=np.float64)
+        nu = JB.tunings_to_nu(tun)
+        assert JB.pattern_mix_ok(tun, rate) and TB.pattern_mix_ok(tun, rate)
+        nu0 = (np.arange(len(tun)) * 104729 % (10 * rate)).astype(np.float32)
+        jc, js = JB._nco_pattern(jnp.asarray(nu0), jnp.asarray(nu), rate)
+        tc, ts = TB._nco_pattern(torch.from_numpy(nu0),
+                                 torch.from_numpy(nu).long(), rate)
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1.2e-7)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1.2e-7)
+        for n in (96000, 192000, 3 * 96000):
+            ja = JB._nco_advance(jnp.asarray(nu0), jnp.asarray(nu), rate, n)
+            ta = TB._nco_advance(torch.from_numpy(nu0),
+                                 torch.from_numpy(nu).long(), rate, n)
+            np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
