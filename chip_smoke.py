@@ -6,17 +6,25 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version on the card, drives the main path (the
-FUNcube telemetry decode: ``bpsk_block_batch`` + ``fec_decode``) over the
-committed goldens and over 128 concurrent demodulator streams at 96 kS/s,
-and checks that the main path went through both kernels. Every phase
+against its plain PyTorch version on the card, and drives the port's two
+main paths: the FUNcube telemetry decode (``bpsk_block_batch`` +
+``fec_decode``) over the committed goldens and over 128 concurrent
+demodulator streams at 96 kS/s (phases 5-6), and the flagship spectrum +
+telemetry step (``bpsk_block_batch_spectrum``) over 128 streams in 4.8 s
+blocks at 96 kS/s, then one 1 s block that takes its staged branch
+(phase 8). It checks that each path went through its kernels, then times
+more steps of each on the host clock and profiles a few with
+torch.profiler for the device-busy share. Every phase
 asserts; any failure ends the run with a non-zero exit code and no result
 line. Each measured number is printed beside the card's name and power
-limit. The output ends with a JSON line per kernel, the card line from
-nvidia-smi, and ``{"ok": true, "device": {...}}`` as the last line.
+limit. The output ends with a JSON line of the kernels (launches on the
+main paths, errors against the plain versions, times, bounds), the card
+line from nvidia-smi, and ``{"ok": true, "device": {...}}`` as the last
+line.
 
-It needs a CUDA card and the checkout (``jsdr_tpu_torch/`` and the JAX-free
-host modules of ``jsdr_tpu/`` beside this file); it imports no jax.
+It needs a CUDA card and the checkout (``jsdr_tpu_torch/`` and
+``tests/golden/`` beside this file); it imports no jax and nothing of the
+JAX package ``jsdr_tpu``.
 """
 
 from __future__ import annotations
@@ -27,17 +35,81 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 MAIN_SHAPE = (128, 96000)           # streams x samples per 1 s block
 # kernel 1 checks: (streams, samples, rate) at 96 k, 192 k, and a ragged
 # last tile (9544 outputs = 74 tiles of 128 + 72)
 MIX_CASES = ((128, 96000, 96000), (64, 192000, 192000), (13, 95440, 96000))
+# kernels 3 and 4: (streams, samples, rate): the flagship shape (4.8 s
+# blocks at 96 k, bench.py's), 192 k, a ragged stream count, and the 1 s
+# block that takes the staged branch
+SPEC_CASES = ((128, 460800, 96000), (256, 460800, 192000), (13, 96000, 96000),
+              (128, 96000, 96000))
+FLAGSHIP_SHAPE = (128, 460800)      # streams x samples per 4.8 s block
 SEED = 2026
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): fp32 outside the tensor
+# cores, and device memory
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# the full PSD against its plain version: amplitude error over the row's
+# RMS amplitude (fp32 DFTs in two summation orders; read on an H100:
+# 8.0e-5 at n = 9600, 1.07e-4 at n = 19200)
+PSD_AMP_TOL = 3e-4
 
 
 def need(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take for this work (ms), and which
+    of its operations and its bytes bounds it."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def spec_work(s: int, t_len: int, n: int, q: int) -> tuple[float, float]:
+    """(flops, bytes) of the waterfall spectrum over [S, T]: per block of
+    n, the window (2n), a factored FFT's 5*n*log2(n) and the power, scale
+    and dB (6n); the two input planes read and wf/peaks written once (the
+    window is read too). The kernels compute the direct two-stage DFT,
+    (n1^2*128 + n1*128^2) complex MACs per block, ~22x the FFT's count at
+    n = 9600: that is their cost, not the least the work needs."""
+    nblk = t_len // n
+    flops = s * nblk * (5.0 * n * np.log2(n) + 8.0 * n)
+    nbytes = (8.0 * s * t_len + 4.0 * s * nblk * (n // 128 // q) * 128
+              + 8.0 * s * nblk + 4.0 * n)
+    return flops, nbytes
+
+
+def psd_errors(torch, k, p) -> tuple[float, float, float]:
+    """A full PSD ``k`` [nblk, S, n1, 128] (dB) against ``p``, by (block,
+    stream) row: the largest dB difference on bins at or above the row's
+    median (the noise floor), the largest amplitude difference over the
+    row's RMS amplitude, and the largest dB difference anywhere. An fp32
+    DFT's error in a bin scales with the block's energy, not the bin's,
+    so bins deep below the floor differ by more dB under another
+    summation order; their amplitudes do not."""
+    d = (k - p).abs()
+    med = p.flatten(2).median(dim=2).values[..., None, None]
+    ak, ap = torch.pow(10.0, k.double() / 20), torch.pow(10.0, p.double() / 20)
+    rms = ap.square().mean(dim=(2, 3), keepdim=True).sqrt()
+    return (float(d[p >= med].max()), float(((ak - ap).abs() / rms).max()),
+            float(d.max()))
+
+
+def front_work(s: int, t_len: int, m: int) -> tuple[float, float]:
+    """(flops, bytes) of the tuner mix + 27-tap decimating FIR: a multiply
+    per input sample and plane, 27 FMAs per output and plane; the input,
+    patterns, taps and tail read, the output and new tail written."""
+    flops = 2.0 * s * t_len + 2 * 27 * 2.0 * s * (t_len // m)
+    nbytes = (8.0 * s * t_len + 8.0 * s * 128 + 4 * 27 + 2 * 8.0 * s * 26
+              + 8.0 * s * (t_len // m))
+    return flops, nbytes
 
 
 def main() -> int:
@@ -53,8 +125,6 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
 
-    import numpy as np
-
     import jsdr_tpu_torch
     from jsdr_tpu_torch.ops import _build
     from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
@@ -63,7 +133,8 @@ def main() -> int:
 
     need(Path(jsdr_tpu_torch.__file__).resolve().parent
          == ROOT / "jsdr_tpu_torch", "imported another jsdr_tpu_torch")
-    need("jax" not in sys.modules, "jax was imported")
+    need("jax" not in sys.modules and "jsdr_tpu" not in sys.modules,
+         "jax or the JAX package was imported")
 
     # ---- phase 1: device -------------------------------------------------
     dev = require_device("cuda")
@@ -98,17 +169,31 @@ def main() -> int:
     # ---- phase 6: a deployment's size (the counted main-path run) ---------
     launches = phase_deployment(torch, np, dev, rng, tag, k1, k2)
 
+    # ---- phase 7: kernels 3 and 4 against their plain versions -----------
+    k3, k4 = phase_spectrum_kernels(torch, np, dev, tag)
+
+    # ---- phase 8: the flagship step at a deployment's size -----------------
+    flagship = phase_flagship(torch, np, dev, rng, tag, k3)
+
+    need("jax" not in sys.modules and "jsdr_tpu" not in sys.modules,
+         "jax or the JAX package was imported")
     print(json.dumps({"kernels": [
         dict(name="mix_decimate", route="cuda",
              source="jsdr_tpu_torch/ops/csrc/mix_decimate.cu",
              replaces="jsdr_tpu/ops/pallas_kernels.py:523",
-             launches=launches[0], max_abs_err=k1["max_abs_err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
+             launches=launches[0], **k1),
         dict(name="timing_recover_batch", route="cuda",
              source="jsdr_tpu_torch/ops/csrc/timing.cu",
              replaces="jsdr_tpu/ops/timing_kernel.py:46",
-             launches=launches[1], max_abs_err=k2["max_abs_err"],
-             ms=k2["ms"], plain_ms=k2["plain_ms"]),
+             launches=launches[1], **k2),
+        dict(name="spectrum_front_fused", route="cuda",
+             source="jsdr_tpu_torch/ops/csrc/spec_front.cu",
+             replaces="jsdr_tpu/ops/pallas_kernels.py:700",
+             launches=flagship["spectrum_front_fused"], **k3),
+        dict(name="spectrum_waterfall", route="cuda",
+             source="jsdr_tpu_torch/ops/csrc/spectrum_wf.cu",
+             replaces="jsdr_tpu/ops/pallas_kernels.py:275",
+             launches=flagship["spectrum_fused"], **k4),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -134,6 +219,46 @@ def time_ms(torch, fn, inputs, iters: int) -> float:
     first = first.re if hasattr(first, "re") else first
     need(bool(torch.isfinite(first.float()).all()), "non-finite output")
     return start.elapsed_time(end) / iters
+
+
+def step_times(torch, step, steps: int, profiled: int, tag: str,
+               what: str) -> float:
+    """Time ``step`` (one call of a main-path entry point on the next
+    input, carrying its state) ``steps`` times on the host clock, each
+    ending in a synchronise; then ``profiled`` more under torch.profiler
+    for the device-busy time per step (the kernels' device time; one
+    stream, so they do not overlap) and the largest kernels. Prints the
+    mean, spread and split; returns the mean ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            step()
+            torch.cuda.synchronize()
+    rows = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us, cnt = rows.get(evt.name, (0.0, 0))
+            rows[evt.name] = (us + evt.time_range.elapsed_us(), cnt + 1)
+    busy = sum(us for us, _ in rows.values()) / 1e3 / profiled
+    need(busy > 0, f"{what}: the profiler saw no device time")
+    mean = float(np.mean(wall))
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:5]
+    print(f"{tag} {what}: {mean:.3f} ms/step mean over {steps} steps (min "
+          f"{min(wall):.3f}, max {max(wall):.3f}); device busy {busy:.3f} "
+          f"ms/step over {profiled} profiled steps, so the device idles "
+          f"{1 - busy / mean:.1%} of the step ({mean - busy:.3f} ms); "
+          f"{sum(c for _, c in rows.values()) / profiled:.0f} kernel "
+          f"launches per step; largest: " + ", ".join(
+              f"{k[:40]} {us / 1e3 / profiled:.3f} ms" for k, (us, _) in top))
+    return mean
 
 
 def phase_mix_decimate(torch, np, dev, rng, tag):
@@ -183,7 +308,9 @@ def phase_mix_decimate(torch, np, dev, rng, tag):
               f" (<= 1e-5 x {scale:.3e}), tails equal; kernel {ms:.4f} ms "
               f"({gbs:.0f} GB/s), plain {plain_ms:.4f} ms")
         if (s, t_len) == MAIN_SHAPE:
-            res = dict(ms=ms, plain_ms=plain_ms)
+            b_ms, b_by = bound(*front_work(s, t_len, m))
+            res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
     res["max_abs_err"] = worst
     return res
 
@@ -241,14 +368,22 @@ def phase_timing(torch, np, dev, rng, tag):
           f"equal (valid, bit where valid, peaks; {n_valid} valid slots in "
           f"block 1), max state err {worst:.3e}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=worst)
+    # per 8-sample group: |v|^2 and the EMA of 8 phases (48 flops), the
+    # argmax (8), two slot decisions (~20); bytes: the two planes in, the
+    # valid/bit bytes and the state in and out
+    n_groups = t_ds // 8
+    b_ms, b_by = bound(76.0 * s * n_groups,
+                       8.0 * s * t_ds + 2.0 * s * 2 * n_groups
+                       + 2 * 52.0 * s)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=worst, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def phase_goldens(torch, np, dev, tag):
     """Phase 5: the committed goldens through the port, 1 s blocks."""
-    from jsdr_tpu.io.convert import s16le_to_complex
     from jsdr_tpu_torch.demod.bpsk import BpskConfig, bpsk_block, bpsk_init
     from jsdr_tpu_torch.fec.decoder import fec_decode
+    from jsdr_tpu_torch.io.convert import s16le_to_complex
     from jsdr_tpu_torch.ops.cplx import from_complex
 
     for name in ("golden_96k.npz", "golden_192k.npz"):
@@ -288,10 +423,10 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
     """Phase 6: 128 concurrent demodulator instances at 96 kS/s, one
     AO-40 frame each, 5 chained 1 s blocks; every payload must decode
     bit-exact. Returns the kernels' launch counts in this run."""
-    from jsdr_tpu.io.sources import synth_bpsk_stream
     from jsdr_tpu_torch.demod.bpsk import (BpskConfig, bpsk_block_batch,
                                            bpsk_init_batch)
     from jsdr_tpu_torch.fec.decoder import fec_decode
+    from jsdr_tpu_torch.io.sources import synth_bpsk_stream
     from jsdr_tpu_torch.ops.cplx import from_complex
     from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
     from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
@@ -363,11 +498,356 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
           f"{mean:.3f} ms/block mean over {n_blocks} blocks "
           f"(each {', '.join(f'{v:.3f}' for v in step_ms)}), "
           f"{s * block / mean / 1e3:.1f} MS/s; FEC drain "
-          f"{', '.join(f'{v:.1f}' for v in fec_ms)} ms per block")
-    print(f"{tag} deployment split: kernels {kern:.3f} ms/block "
-          f"(mix_decimate {k1['ms']:.3f} + timing {k2['ms']:.3f}, event-"
-          f"timed at these shapes), the rest {mean - kern:.3f} ms/block")
+          f"{', '.join(f'{v:.1f}' for v in fec_ms)} ms per block; kernels "
+          f"1 + 2 {kern:.3f} ms/block (event-timed in phases 3-4)")
+    state = [st, 0]
+
+    def step():
+        state[0] = bpsk_block_batch(blocks[state[1] % n_blocks], cfg,
+                                    state[0], tunings)[1]
+        state[1] += 1
+
+    step_times(torch, step, 10, 3, tag,
+               f"telemetry step bpsk_block_batch S={s} T={block}")
     return launches
+
+
+def phase_spectrum_kernels(torch, np, dev, tag):
+    """Phase 7: kernels 3 (merged spectrum + front end) and 4 (waterfall
+    spectrum) against their plain versions, against each other (bit for
+    bit) and kernel 3's front end against kernel 1 (bit for bit), on tones
+    over a noise floor; kernel 4's full PSD (q = 1, through
+    ``spectrum_wide`` as the CLI calls it) against its plain version (see
+    :func:`psd_errors`); times of both kernels, their plain versions, and
+    torch.fft.fft over the same windowed blocks (the library call for the
+    DFT part). Returns the kernels' rows at the main paths' shapes."""
+    from jsdr_tpu_torch.demod.bpsk import (DS_FILTER, HOWARD_FUDGE_FACTOR,
+                                           NU_SCALE, _nco_pattern,
+                                           tunings_to_nu)
+    from jsdr_tpu_torch.ops.cplx import CF
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.spectrum import spectrum_wide
+    from jsdr_tpu_torch.ops.spectrum_front import (spectrum_front_fused,
+                                                   spectrum_front_ref)
+    from jsdr_tpu_torch.ops.spectrum_fused import (spectrum_waterfall,
+                                                   spectrum_wf_ref,
+                                                   wf_group_for)
+    from jsdr_tpu_torch.ops.windows import hamming
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    worst = {"k3": 0.0, "k4": 0.0}
+    rows = {}
+    for s, t_len, rate in SPEC_CASES:
+        n, m = rate // 10, rate // 9600
+        q = wf_group_for(n)
+        step = 750 if rate == 96000 else 1500
+        tun = step * (8 + np.arange(s) % 21)
+        tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64,
+                             device=dev)
+        nu0 = torch.randint(0, NU_SCALE * rate, (s,), generator=gen,
+                            device=dev).float()
+        cos_pat, sin_pat = _nco_pattern(nu0, tu, rate)
+        # a tone per stream at its own frequency (a whole bin) over a floor
+        tone_hz = torch.as_tensor(10.0 * ((np.arange(s) * 397) % (n // 2))
+                                  - rate / 4, dtype=torch.float64,
+                                  device=dev)
+        ang = (2 * np.pi / rate) * tone_hz[:, None] * torch.arange(
+            t_len, dtype=torch.float64, device=dev)[None, :]
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        inputs = []
+        for _ in range(3):
+            x = CF((0.3 * rand(s, t_len) + 1.5 * torch.cos(ang)).float(),
+                   (0.3 * rand(s, t_len) + 1.5 * torch.sin(ang)).float())
+            inputs.append((x, n, cos_pat, sin_pat, taps, m,
+                           CF(rand(s, 26), rand(s, 26)),
+                           HOWARD_FUDGE_FACTOR))
+        del ang
+        x, tail = inputs[0][0], inputs[0][6]
+        k3 = spectrum_front_fused(*inputs[0])
+        p3 = spectrum_front_ref(*inputs[0])
+        k4 = spectrum_waterfall(x, n)
+        k1 = mix_decimate(x, cos_pat, sin_pat, taps, m, tail,
+                          HOWARD_FUDGE_FACTOR)
+        torch.cuda.synchronize()
+        label = f"S={s} T={t_len} rate={rate} (n={n}, q={q}, m={m})"
+        wf_err = float((k3[0] - p3[0]).abs().max())
+        mx_err = float((k3[1] - p3[1]).abs().max())
+        need(wf_err <= 2e-3, f"spectrum_front_fused {label}: wf "
+             f"|kernel-plain| {wf_err} dB > 2e-3")
+        need(mx_err <= 1e-3, f"spectrum_front_fused {label}: peak "
+             f"|kernel-plain| {mx_err} dB > 1e-3")
+        need(torch.equal(k3[2], p3[2]),
+             f"spectrum_front_fused {label}: argmax differs from plain")
+        scale = max(float(p3[3].re.abs().max()), float(p3[3].im.abs().max()))
+        ds_err = max(float((k3[3].re - p3[3].re).abs().max()),
+                     float((k3[3].im - p3[3].im).abs().max()))
+        need(ds_err <= 1e-5 * scale, f"spectrum_front_fused {label}: ds "
+             f"|kernel-plain| {ds_err} > 1e-5 * {scale}")
+        need(torch.equal(k3[4].re, p3[4].re) and torch.equal(k3[4].im,
+                                                             p3[4].im),
+             f"spectrum_front_fused {label}: tails differ from plain")
+        need(all(torch.equal(a, b) for a, b in zip(k3[:3], k4)),
+             f"{label}: kernel 3's wf/mx/idx are not kernel 4's")
+        need(torch.equal(k3[3].re, k1[0].re) and torch.equal(k3[3].im,
+                                                             k1[0].im)
+             and torch.equal(k3[4].re, k1[1].re)
+             and torch.equal(k3[4].im, k1[1].im),
+             f"{label}: kernel 3's ds/tail are not kernel 1's")
+        p4 = spectrum_wf_ref(x, n, True, q)
+        k4_err = float((k4[0] - p4[0]).abs().max())
+        need(k4_err <= 2e-3 and float((k4[1] - p4[1]).abs().max()) <= 1e-3
+             and torch.equal(k4[2], p4[2]),
+             f"spectrum_waterfall {label}: differs from plain ({k4_err} dB)")
+        del p4
+        # the full PSD (q = 1), as spectrum_wide and the CLI run kernel 4
+        full = spectrum_wide(x, n, rate, natural=False)
+        pf = spectrum_wf_ref(x, n, True, 1)
+        db_above, amp_err, db_any = psd_errors(torch, full.psd, pf[0])
+        need(db_above <= 2e-3 and amp_err <= PSD_AMP_TOL,
+             f"spectrum_wide {label}: full PSD |kernel-plain| {db_above} dB "
+             f"at or above the floor (limit 2e-3), amplitude {amp_err} of "
+             f"the block's RMS (limit {PSD_AMP_TOL})")
+        need(float((full.peak_db.T - pf[1]).abs().max()) <= 1e-3
+             and torch.equal(full.peak_freq, tone_hz.round().int()[:, None]
+                             .expand_as(full.peak_freq)),
+             f"spectrum_wide {label}: peaks differ from plain or the tone")
+        # both against a float64 FFT of the same windowed blocks (a reading)
+        z = torch.complex(x.re.double(), x.im.double()).view(s, -1, n)
+        truth = 10.0 * torch.log10(torch.clamp_min(torch.fft.fft(
+            z * hamming(n, device=dev).double()).abs().square()
+            * (2.0 / n) ** 2, 1e-30))
+        truth = truth.view(s, -1, 128, n // 128).permute(1, 0, 3, 2)
+        vs64 = (psd_errors(torch, full.psd, truth),
+                psd_errors(torch, pf[0], truth))
+        del full, pf, z, truth
+        # the argmax is the tone: natural bin of idx at the tone's bin
+        n1 = n // 128
+        k_nat = n1 * (k3[2].long() % 128) + k3[2].long() // 128
+        want_bin = (torch.round(tone_hz * n / rate).long() % n)[None, :]
+        need(torch.equal(k_nat, want_bin.expand_as(k_nat)),
+             f"{label}: the peak is not at the tone")
+        worst["k3"] = max(worst["k3"], wf_err)
+        worst["k4"] = max(worst["k4"], k4_err, db_any)
+
+        ms3 = time_ms(torch, spectrum_front_fused, inputs, 10)
+        plain3 = time_ms(torch, spectrum_front_ref, inputs, 3)
+        ms4 = time_ms(torch, lambda x_, n_: spectrum_waterfall(x_, n_),
+                      [(i[0], n) for i in inputs], 10)
+        plain4 = time_ms(torch, lambda x_, n_: spectrum_wf_ref(x_, n_, True,
+                                                               q),
+                         [(i[0], n) for i in inputs], 3)
+        win = hamming(n, device=dev)
+        blocks = [(torch.complex(i[0].re.view(s, -1, n) * win,
+                                 i[0].im.view(s, -1, n) * win),)
+                  for i in inputs]
+        fft_ms = time_ms(torch, lambda z: torch.fft.fft(z).real, blocks, 10)
+        del blocks
+        f4, b4 = spec_work(s, t_len, n, q)
+        f1, b1 = front_work(s, t_len, m)
+        bound4 = bound(f4, b4)
+        bound3 = bound(f4 + f1, b4 + b1 - 8.0 * s * t_len)
+        print(f"{tag} spectrum kernels {label}: wf |k-p| {wf_err:.3e} dB, "
+              f"peak {mx_err:.3e} dB, argmax equal (the tones), ds |k-p| "
+              f"{ds_err:.3e} (<= 1e-5 x {scale:.3e}); kernel 3 == kernel 4 "
+              f"(wf, mx, idx) and == kernel 1 (ds, tail), bit for bit; full "
+              f"PSD (q=1) |k-p| {db_above:.3e} dB at or above the floor, "
+              f"{db_any:.3e} dB anywhere, amplitude {amp_err:.3e} of the "
+              f"block's RMS; against float64, kernel "
+              f"{vs64[0][0]:.3e}/{vs64[0][2]:.3e} dB, {vs64[0][1]:.3e} amp., "
+              f"plain {vs64[1][0]:.3e}/{vs64[1][2]:.3e} dB, "
+              f"{vs64[1][1]:.3e} amp.")
+        print(f"{tag}   kernel 3 spectrum_front_fused {ms3:.4f} ms (plain "
+              f"{plain3:.4f}, bound {bound3[0]:.4f} by {bound3[1]}); kernel 4"
+              f" spectrum_waterfall {ms4:.4f} ms (plain {plain4:.4f}, bound "
+              f"{bound4[0]:.4f} by {bound4[1]}); torch.fft.fft over the "
+              f"windowed blocks {fft_ms:.4f} ms; direct DFT "
+              f"{f4 / ms4 / 1e9:.1f} TFLOP/s in kernel 4")
+        if (s, t_len) == FLAGSHIP_SHAPE and rate == 96000:
+            rows["k3"] = dict(ms=ms3, plain_ms=plain3, bound_ms=bound3[0],
+                              bound_by=bound3[1], library_ms=fft_ms)
+        if (s, t_len) == MAIN_SHAPE and rate == 96000:
+            rows["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=bound4[0],
+                              bound_by=bound4[1], library_ms=fft_ms)
+        del inputs, x, tail, k3, p3, k4, k1
+        torch.cuda.empty_cache()
+    rows["k3"]["max_abs_err"] = worst["k3"]
+    rows["k4"]["max_abs_err"] = worst["k4"]
+    return rows["k3"], rows["k4"]
+
+
+def phase_flagship(torch, np, dev, rng, tag, k3):
+    """Phase 8: the flagship step, ``bpsk_block_batch_spectrum``, over 128
+    concurrent demodulator streams at 96 kS/s (tunings 6000..21000 Hz in
+    750 Hz steps), one AO-40 frame each at its own offset, 2 chained
+    4.8 s blocks (the merged branch: kernel 3 once per step, kernels 4 and
+    1 never), one FEC drain per block; every payload must decode exactly
+    once, bit-exact. Then one 1 s block through the same entry point (the
+    staged branch: kernels 4, 1 and 2 once each), whose waterfall must
+    equal the merged kernel's on the same samples. Last, 10 timed and 3
+    profiled steps of each branch (:func:`step_times`). Returns the launch
+    counts of both counted runs."""
+    from jsdr_tpu_torch.demod.bpsk import (BpskConfig,
+                                           bpsk_block_batch_spectrum,
+                                           bpsk_init_batch)
+    from jsdr_tpu_torch.fec.decoder import fec_decode
+    from jsdr_tpu_torch.io.sources import synth_bpsk_stream
+    from jsdr_tpu_torch.ops.cplx import CF, from_complex
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
+    from jsdr_tpu_torch.ops.spectrum_fused import spectrum_fused
+    from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
+
+    counted = (spectrum_front_fused, spectrum_fused, mix_decimate,
+               timing_recover_batch)
+
+    def reset():
+        for fn in counted:
+            fn.launches = 0
+
+    def read():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    s, block = FLAGSHIP_SHAPE
+    rate, n_blocks, n = 96000, 2, 9600
+    tunings = 6000.0 + 750.0 * (np.arange(s) % 21)
+    payloads = rng.integers(0, 256, (s, 256), dtype=np.uint8)
+    t0 = time.perf_counter()
+    iq = np.zeros((s, n_blocks * block), np.complex64)
+    frames = []
+    for i in range(s):
+        sig = synth_bpsk_stream(payloads[i:i + 1], rate=rate,
+                                carrier_offset=float(tunings[i]),
+                                preamble_bits=200, noise_rms=0.25,
+                                seed=1000 + i)
+        room = iq.shape[1] - len(sig)
+        need(room >= 0, "frame longer than the run")
+        off = (i * 7919) % (room + 1)
+        iq[i, off:off + len(sig)] = sig
+        frames.append((off, off + len(sig)))
+    blocks = [from_complex(iq[:, b * block:(b + 1) * block], dev)
+              for b in range(n_blocks)]
+    torch.cuda.synchronize()
+    print(f"flagship: {s} streams x {n_blocks} x {block / rate} s at {rate} "
+          f"S/s synthesised and uploaded in {time.perf_counter() - t0:.2f} s")
+
+    cfg = BpskConfig(rate=rate)
+    bpsk_block_batch_spectrum(blocks[0], cfg, bpsk_init_batch(cfg, s, dev),
+                              tunings)
+    torch.cuda.synchronize()                           # warm-up, discarded
+
+    st = bpsk_init_batch(cfg, s, dev)
+    step_ms, fec_ms, specs = [], [], []
+    decoded = [[] for _ in range(s)]
+    failed = 0
+    reset()
+    for b in range(n_blocks):
+        t0 = time.perf_counter()
+        spec, out, st = bpsk_block_batch_spectrum(blocks[b], cfg, st,
+                                                  tunings)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        specs.append(spec)
+        need(tuple(spec.wf.shape) == (block // n, s, 15, 128)
+             and bool(torch.isfinite(spec.wf).all())
+             and bool(torch.isfinite(out.energies).all()),
+             "flagship: non-finite or misshapen output")
+        n_hits = out.n_hits
+        hit = (torch.arange(out.windows.shape[1], device=dev)[None, :]
+               < n_hits[:, None])
+        stream_of = torch.nonzero(hit)[:, 0].cpu().numpy()
+        if len(stream_of):
+            res = fec_decode(out.windows[hit])
+            ok = res.ok.cpu().numpy()
+            pay = res.payload.cpu().numpy()
+            for j, si in enumerate(stream_of):
+                if ok[j]:
+                    decoded[si].append(pay[j])
+                else:
+                    failed += 1
+        fec_ms.append((time.perf_counter() - t1) * 1e3)
+    merged = read()
+    need(merged == {"spectrum_front_fused": n_blocks, "spectrum_fused": 0,
+                    "mix_decimate": 0, "timing_recover_batch": n_blocks},
+         f"flagship launches {merged}: want kernel 3 and the timing kernel "
+         f"once per step, kernels 4 and 1 never")
+    bad = [i for i in range(s) if len(decoded[i]) != 1
+           or not np.array_equal(decoded[i][0], payloads[i])]
+    need(not bad, f"flagship: streams {bad[:10]} did not decode their "
+         "payload exactly once")
+    need((st.counters.cpu().numpy()[:, 0] == n_blocks * block).all(),
+         "flagship: raw counters wrong")
+    # the display spectrum sees each frame: FFT blocks wholly inside a
+    # frame peak within 700 Hz of its carrier (tuning + 1200 Hz)
+    freq = torch.cat([sp.peak_freq for sp in specs], dim=1).cpu().numpy()
+    starts = np.arange(freq.shape[1]) * n
+    far = 0
+    for i, (a, e) in enumerate(frames):
+        inside = (starts >= a) & (starts + n <= e)
+        far += int((np.abs(freq[i, inside] - (tunings[i] + 1200)) > 700)
+                   .sum())
+    need(far == 0, f"flagship: {far} FFT blocks inside frames peak away "
+         "from the carrier")
+
+    # one 1 s block through the same entry point: the staged branch
+    x1 = CF(blocks[0].re[:, :rate].contiguous(),
+            blocks[0].im[:, :rate].contiguous())
+    reset()
+    t0 = time.perf_counter()
+    spec1, _out1, st1 = bpsk_block_batch_spectrum(
+        x1, cfg, bpsk_init_batch(cfg, s, dev), tunings)
+    torch.cuda.synchronize()
+    staged_ms = (time.perf_counter() - t0) * 1e3
+    staged = read()
+    need(staged == {"spectrum_front_fused": 0, "spectrum_fused": 1,
+                    "mix_decimate": 1, "timing_recover_batch": 1},
+         f"staged 1 s block launches {staged}: want kernels 4, 1 and the "
+         "timing kernel once each, kernel 3 never")
+    need(torch.equal(spec1.wf, specs[0].wf[:rate // n])
+         and torch.equal(spec1.peak_db, specs[0].peak_db[:, :rate // n])
+         and torch.equal(spec1.peak_freq, specs[0].peak_freq[:, :rate // n]),
+         "staged 1 s block: waterfall differs from the merged kernel's")
+
+    print(f"{tag} flagship: all {s} payloads decoded bit-exact ({failed} "
+          f"failed sync hits); bpsk_block_batch_spectrum "
+          f"{', '.join(f'{v:.3f}' for v in step_ms)} ms for the {n_blocks} "
+          f"decoded steps of {block} samples; FEC drain "
+          f"{', '.join(f'{v:.1f}' for v in fec_ms)} ms per block; "
+          f"launches {merged}; kernel 3 {k3['ms']:.3f} ms/step (event-timed "
+          f"at this shape in phase 7)")
+    print(f"{tag} staged 1 s block (S={s}, T={rate}): {staged_ms:.3f} ms, "
+          f"launches {staged}; waterfall equal to the merged kernel's")
+
+    # more steps of both branches for their time, spread and split
+    state = [st, 0]
+
+    def merged_step():
+        state[0] = bpsk_block_batch_spectrum(
+            blocks[state[1] % n_blocks], cfg, state[0], tunings)[2]
+        state[1] += 1
+
+    mean = step_times(torch, merged_step, 10, 3, tag,
+                      f"flagship step bpsk_block_batch_spectrum S={s} "
+                      f"T={block}")
+    print(f"{tag} flagship: {s * block / mean / 1e3:.1f} MS/s at the mean")
+    xs1 = [x1, CF(blocks[1].re[:, :rate].contiguous(),
+                  blocks[1].im[:, :rate].contiguous())]
+    state = [st1, 0]
+
+    def staged_step():
+        state[0] = bpsk_block_batch_spectrum(xs1[state[1] % 2], cfg,
+                                             state[0], tunings)[2]
+        state[1] += 1
+
+    step_times(torch, staged_step, 10, 3, tag,
+               f"staged step bpsk_block_batch_spectrum S={s} T={rate}")
+    return {"spectrum_front_fused": merged["spectrum_front_fused"],
+            "spectrum_fused": staged["spectrum_fused"]}
 
 
 if __name__ == "__main__":

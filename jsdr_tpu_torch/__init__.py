@@ -9,14 +9,18 @@ under ``ops/csrc/``, built with ``nvcc`` at first use and bound with
 PyTorch version for CPU tensors and launches its kernel for CUDA
 tensors; there is no fallback between the two.
 
-The package never imports jax. JAX-free host modules of ``jsdr_tpu``
-(``fec.tables``, ``fec.ref_numpy``, ``io.convert``, ``io.sources`` and
-the CLI's host helpers) are imported, not copied.
+The package never imports jax, nor anything of ``jsdr_tpu``: the
+JAX-free host modules it needs (``fec.tables``, ``fec.ref_numpy``,
+``io.convert``, ``io.sources``, ``io.flac``, ``display.waterfall``,
+``display.render`` and the CLI's host helpers) are copies, held equal to
+the reference's by tests/test_torch_host_copies.py.
 
 Ported so far: the telemetry decode path in "pattern" tuning mode —
-``demod.bpsk.bpsk_block_batch`` and ``fec.decoder.fec_decode`` — and the
-``jsdr-tpu-torch telemetry`` command. ROADMAP.md lists what is still to
-port.
+``demod.bpsk.bpsk_block_batch`` and ``fec.decoder.fec_decode`` — the
+flagship spectrum + telemetry step ``demod.bpsk.bpsk_block_batch_spectrum``
+with ``ops.spectrum`` (``spectrum_block``, ``spectrum_wide``), and the
+``jsdr-tpu-torch telemetry`` and ``spectrum`` commands. ROADMAP.md lists
+what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,12 @@ Per block of [S, T] stream rows (T a multiple of 8*decim):
 4. bit compaction, stride-80 sync correlation at every bit position and
    soft-window extraction (plain torch).
 
+:func:`bpsk_block_batch_spectrum` adds the display spectrum to the same
+step: one kernel (``ops.spectrum_front``) reads the input once for the
+waterfall and for step 1, or, where the reference's rule says so, the
+staged pair runs (``ops.spectrum_fused.spectrum_waterfall``, then
+:func:`bpsk_block_batch`).
+
 Values, layouts and carried state match the reference; where the JAX code
 avoids TPU gathers (one-hot row matmuls, masked reductions) this port
 indexes directly. The "general" and "static" mix modes, the FFT
@@ -29,11 +35,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from jsdr_tpu.fec.tables import SYNC_VECTOR
+from ..fec.tables import SYNC_VECTOR
 
 from ..ops.cplx import CF
 from ..ops.fir import fir_apply_streaming
 from ..ops.mix_decimate import mix_decimate
+from ..ops.spectrum import bin_to_hz
+from ..ops.spectrum_front import sf_geometry, spectrum_front_fused
+from ..ops.spectrum_fused import spectrum_waterfall
 from ..ops.timing_kernel import timing_recover_batch
 
 # Constants copied from jsdr_tpu/demod/bpsk.py:52-107 (that module imports
@@ -359,21 +368,11 @@ def _not_ported(what: str):
         "use jsdr_tpu for it")
 
 
-def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
-                     tunings=None, dofft=None
-                     ) -> Tuple[BpskBlockOut, BpskState]:
-    """Batched telemetry chain over independent streams: [S, T] blocks.
-
-    ``iq``: CF of float32 [S, T] tensors, all on one device, which the
-    state must share; T a multiple of 8*cfg.decim. ``tunings``: host
-    array-like [S] of per-stream NCO Hz (default cfg.tuning for every
-    stream); each must satisfy ``pattern_mix_ok`` (e.g. a multiple of
-    750 Hz at 96 kS/s). ``dofft``: host bool array-like [S]
-    (default cfg.dofft); any True raises NotImplementedError. Returns the
-    block's output and the carried state."""
+def _pattern_tunings(iq: CF, cfg: BpskConfig, tunings, dofft) -> np.ndarray:
+    """Check a block and its configuration against what the port runs;
+    returns the per-stream tunings in Hz [S] (default cfg.tuning)."""
     s, t_len = iq.shape
     m = cfg.decim
-    dev = iq.re.device
     if t_len % (8 * m):
         raise ValueError(
             f"block length {t_len} must be a multiple of 8*decim = {8 * m} "
@@ -396,17 +395,17 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
             f"tunings {tun.tolist()} at {cfg.rate} S/s need the 'general' "
             "or 'static' mix mode (pattern mode needs 128*tuning*10 to be "
             "a multiple of 10*rate)")
-    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
+    return tun
 
-    # front end: mix + decimate kernel
-    cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, cfg.rate)
-    tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
-    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
-    iq = CF(iq.re.contiguous(), iq.im.contiguous())
-    ds, ds_tail = mix_decimate(iq, cos_pat, sin_pat, taps, m,
-                               states.ds_tail, HOWARD_FUDGE_FACTOR)
 
-    # VCO mix + matched filter
+def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
+                ds_tail: CF, t_len: int, max_hits: int
+                ) -> Tuple[BpskBlockOut, BpskState]:
+    """The decimated-domain stages after the front end (the counterpart of
+    ``jsdr_tpu.demod.bpsk._bpsk_post_batch``): VCO mix + matched filter,
+    timing recovery, compaction, sync search, window extraction, and the
+    carried state."""
+    dev = ds.re.device
     bb, vco_idx = _vco_mix(ds, states.vco_idx)
     mf, mf_tail = fir_apply_streaming(
         bb, torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev),
@@ -420,11 +419,11 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     timing = TimingState(e_ema, tm.pos, peak, new_peak, e_out, last_iq)
 
     # compaction, sync search, window extraction
-    ds_len = t_len // m
+    ds_len = ds.shape[-1]
     max_bits = 2 * (ds_len // SAMPLES_PER_BIT) + 2
     bits, n_bits = _compact_bits(valid, bit, max_bits)
     windows, hit_corr, n_hits, ring = soft_frames_from_bits(
-        bits, n_bits, states.ring, cfg.max_hits_per_block)
+        bits, n_bits, states.ring, max_hits)
     counters = states.counters + torch.stack(
         [torch.full_like(n_bits, t_len), torch.full_like(n_bits, ds_len),
          n_bits, n_hits], dim=1)
@@ -436,6 +435,101 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     new_state = BpskState(tu_phase, ds_tail, vco_idx, mf_tail, timing, ring,
                           counters, states.fft_tuner)
     return out, new_state
+
+
+def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
+                     tunings=None, dofft=None
+                     ) -> Tuple[BpskBlockOut, BpskState]:
+    """Batched telemetry chain over independent streams: [S, T] blocks.
+
+    ``iq``: CF of float32 [S, T] tensors, all on one device, which the
+    state must share; T a multiple of 8*cfg.decim. ``tunings``: host
+    array-like [S] of per-stream NCO Hz (default cfg.tuning for every
+    stream); each must satisfy ``pattern_mix_ok`` (e.g. a multiple of
+    750 Hz at 96 kS/s). ``dofft``: host bool array-like [S]
+    (default cfg.dofft); any True raises NotImplementedError. Returns the
+    block's output and the carried state."""
+    t_len = iq.shape[-1]
+    dev = iq.re.device
+    tun = _pattern_tunings(iq, cfg, tunings, dofft)
+    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
+
+    # front end: mix + decimate kernel
+    cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, cfg.rate)
+    tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
+    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    iq = CF(iq.re.contiguous(), iq.im.contiguous())
+    ds, ds_tail = mix_decimate(iq, cos_pat, sin_pat, taps, cfg.decim,
+                               states.ds_tail, HOWARD_FUDGE_FACTOR)
+    return _post_batch(ds, states, tu_phase, ds_tail, t_len,
+                       cfg.max_hits_per_block)
+
+
+class WaterfallOut(NamedTuple):
+    wf: torch.Tensor         # [T//n, S, G, 128] dB max-decimated lines
+    peak_freq: torch.Tensor  # [S, T//n] Hz (signed, reference truncation)
+    peak_db: torch.Tensor    # [S, T//n]
+
+
+def spectrum_step_merged(cfg: BpskConfig, t_len: int, tunings) -> bool:
+    """The reference's rule for the merged kernel
+    (``jsdr_tpu.demod.bpsk.bpsk_block_batch_spectrum``): manual tuning
+    only, no fused matched filter, T a multiple of the merged kernel's
+    chunk (``sf_geometry``: 4 FFT blocks at 96 k, 2 at 192 k),
+    128-periodic tunings, and T a multiple of 8*decim."""
+    n = cfg.rate // 10
+    sf_blocks, _ = sf_geometry(n, cfg.decim)
+    return (not cfg.dofft and not cfg.fuse_mf
+            and t_len % (sf_blocks * n) == 0
+            and pattern_mix_ok(tunings, cfg.rate)
+            and t_len % (8 * cfg.decim) == 0)
+
+
+def _waterfall_out(wf, mx, idx, rate: int) -> WaterfallOut:
+    n = rate // 10
+    n1 = n // 128
+    k_nat = n1 * (idx % 128) + idx // 128
+    signed = torch.where(k_nat < n // 2, k_nat, k_nat - n)
+    freq = bin_to_hz(signed, rate, n).to(torch.int32)
+    return WaterfallOut(wf, freq.T, mx.T)
+
+
+def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
+                              tunings=None, window: bool = True):
+    """Batched telemetry chain PLUS the display spectrum in one step: the
+    flagship per-step call of a deployment that renders a waterfall while
+    decoding (the reference runs fft.java and FUNcubeBPSKDemod.java side
+    by side on every block). FFT blocks are n = rate/10 samples.
+
+    Returns (WaterfallOut, BpskBlockOut, new_states). When
+    :func:`spectrum_step_merged` holds, one kernel
+    (:func:`jsdr_tpu_torch.ops.spectrum_front.spectrum_front_fused`)
+    reads the input once for both the waterfall and the front end;
+    otherwise the staged pair runs (``spectrum_waterfall``, then
+    :func:`bpsk_block_batch`: one more read of the input) with the same
+    results. ``dofft``, ``fuse_mf``, ``compat_scan`` and tunings outside
+    pattern mode raise NotImplementedError, as in
+    :func:`bpsk_block_batch`."""
+    t_len = iq.shape[-1]
+    dev = iq.re.device
+    tun = _pattern_tunings(iq, cfg, tunings, None)
+    n = cfg.rate // 10
+    iq = CF(iq.re.contiguous(), iq.im.contiguous())
+    if not spectrum_step_merged(cfg, t_len, tun):
+        # staged pair (two input reads)
+        wf, mx, idx = spectrum_waterfall(iq, n, window=window)
+        out, new_states = bpsk_block_batch(iq, cfg, states, tun)
+        return _waterfall_out(wf, mx, idx, cfg.rate), out, new_states
+    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
+    cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, cfg.rate)
+    tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
+    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    wf, mx, idx, ds, ds_tail = spectrum_front_fused(
+        iq, n, cos_pat, sin_pat, taps, cfg.decim, states.ds_tail,
+        gain=HOWARD_FUDGE_FACTOR, window=window)
+    out, new_states = _post_batch(ds, states, tu_phase, ds_tail, t_len,
+                                  cfg.max_hits_per_block)
+    return _waterfall_out(wf, mx, idx, cfg.rate), out, new_states
 
 
 def bpsk_block(iq: CF, cfg: BpskConfig, state: BpskState,

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jsdr_tpu.fec.tables import (
+from .tables import (
     COLUMNS, KK, NBITS, NN, ROWS, RSBLOCKS, RSPAD, SCRAMBLER,
 )
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jsdr_tpu.fec.tables import (
+from .tables import (
     A0, ALPHA_TO, BLOCKSIZE, COLUMNS, CPOLYA, CPOLYB, INDEX_OF, NBITS, NROOTS,
     PARTAB, ROWS, RS_POLY, SCRAMBLER, SYMPBLOCK, SYNC_BITS,
 )

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jsdr_tpu.fec.tables import A0, ALPHA_TO, FCR, INDEX_OF, IPRIM, NN, NROOTS, PRIM
+from .tables import A0, ALPHA_TO, FCR, INDEX_OF, IPRIM, NN, NROOTS, PRIM
 
 # s_i = XOR_j gfmul(data[j], alpha^SYND_POW[i, j])  (Horner form, :336-347)
 _SYND_POW = np.asarray(

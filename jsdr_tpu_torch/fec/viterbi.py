@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jsdr_tpu.fec.tables import METTAB, SYMS
+from .tables import METTAB, SYMS
 
 K_FLUSH = 6
 _N_STATES = 64

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``ops/csrc/*.cu`` have a plain C interface. At first
-use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library under ``build/jsdr_tpu_torch/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of the sources and
-flags, and loaded with ``ctypes``. A later call in any process reuses the
+use each is compiled with ``nvcc`` for Hopper (``sm_90a``), one compiler
+process per source, all started together; the objects are linked into
+one shared library under ``build/jsdr_tpu_torch/`` at the root of the
+checkout (listed in ``.gitignore``), named by a hash of the sources
+(headers included) and flags, and loaded with ``ctypes``. A later call in any process reuses the
 library while the sources are unchanged. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
 
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jsdr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointer and stream arguments are void*, ints are int
@@ -37,6 +38,13 @@ _SIGNATURES = {
     # e_ema', peak', new_peak', e_out', last_iq', n_streams, n_groups,
     # s1, a1, s2, a2, gate, stream
     "jsdr_timing_recover": [_P] * 14 + [_I, _I, _F, _F, _F, _F, _F, _P],
+    # xr, xi, win, w1r, w1i, twr, twi, w2r, w2i, wf, mx, idx, n_streams,
+    # t_len, n1, q, cf, stream
+    "jsdr_spectrum_wf": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+    # xr, xi, win, w1r, w1i, twr, twi, w2r, w2i, cos, sin, taps, tail_r,
+    # tail_i, wf, mx, idx, yr, yi, ntail_r, ntail_i, n_streams, t_len, n1,
+    # q, cf, m, gain, stream
+    "jsdr_spec_front": [_P] * 21 + [_I, _I, _I, _I, _F, _I, _F, _P],
 }
 
 
@@ -59,21 +67,37 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists;
-    returns its path. The compiler's output (``-Xptxas=-v``: registers,
+    returns its path. The compilers' output (``-Xptxas=-v``: registers,
     shared memory, spills per kernel) is kept beside it as ``.log``."""
     so = BUILD_DIR / f"libjsdr_tpu_torch_{_digest()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], False
+    for cmd, _obj, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        failed |= proc.returncode != 0
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(j[1]) for j in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        failed = res.returncode != 0
+    for _cmd, obj, _proc in jobs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
     os.replace(tmp, so)
     return so
 

@@ -23,13 +23,18 @@
 // FMAs per plane. The TPU kernel's banded MXU matmul over [8, 1280*m]
 // blocks is not carried over: 27 MACs per output are cheaper as FMAs than
 // as a padded tensor-core product. A second small launch writes the tail.
+//
+// The mix and the per-output FMA loop live in fir_mix.cuh, shared with the
+// merged spectrum + front end kernel (spec_front.cu).
 #include <cuda_runtime.h>
+
+#include "fir_mix.cuh"
 
 namespace {
 
-constexpr int kTaps = 27;
-constexpr int kHalo = kTaps - 1;
-constexpr int kPeriod = 128;
+using jsdr_fir::kHalo;
+using jsdr_fir::kPeriod;
+using jsdr_fir::kTaps;
 constexpr int kOutPerCta = 128;
 
 __global__ void __launch_bounds__(kOutPerCta)
@@ -73,41 +78,11 @@ mix_decimate_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   if (o < n_here) {
     const float* pr = wr + o * m + kHalo;
     const float* pi = wi + o * m + kHalo;
-    float ar = 0.f, ai = 0.f;
-#pragma unroll
-    for (int a = 0; a < kTaps; ++a) {
-      ar = fmaf(pr[-a], tp[a], ar);
-      ai = fmaf(pi[-a], tp[a], ai);
-    }
+    const float2 y = jsdr_fir::fir_output(
+        [&](int a) { return make_float2(pr[-a], pi[-a]); }, tp, gain);
     const long long out = static_cast<long long>(s) * n_out + k0 + o;
-    yr[out] = __fmul_rn(ar, gain);
-    yi[out] = __fmul_rn(ai, gain);
-  }
-}
-
-// new_tail[s, j] = padded[t_len + j], padded = [tail ++ mixed]
-__global__ void mix_tail_kernel(const float* __restrict__ xr,
-                                const float* __restrict__ xi,
-                                const float* __restrict__ cos_pat,
-                                const float* __restrict__ sin_pat,
-                                const float* __restrict__ tail_r,
-                                const float* __restrict__ tail_i,
-                                float* __restrict__ ntail_r,
-                                float* __restrict__ ntail_i, int n_streams,
-                                int t_len) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_streams * kHalo) return;
-  const int s = idx / kHalo;
-  const int j = idx - s * kHalo;
-  const int t = t_len + j - kHalo;  // input index of padded[t_len + j]
-  if (t < 0) {
-    ntail_r[idx] = tail_r[s * kHalo + t_len + j];
-    ntail_i[idx] = tail_i[s * kHalo + t_len + j];
-  } else {
-    const long long at = static_cast<long long>(s) * t_len + t;
-    const int p = t & (kPeriod - 1);
-    ntail_r[idx] = __fmul_rn(xr[at], cos_pat[s * kPeriod + p]);
-    ntail_i[idx] = __fmul_rn(xi[at], sin_pat[s * kPeriod + p]);
+    yr[out] = y.x;
+    yi[out] = y.y;
   }
 }
 
@@ -136,9 +111,7 @@ extern "C" int jsdr_mix_decimate(const float* xr, const float* xi,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int n_tail = n_streams * kHalo;
-  mix_tail_kernel<<<(n_tail + 255) / 256, 256, 0, st>>>(
+  return static_cast<int>(jsdr_fir::launch_mix_tail(
       xr, xi, cos_pat, sin_pat, tail_r, tail_i, ntail_r, ntail_i, n_streams,
-      t_len);
-  return static_cast<int>(cudaGetLastError());
+      t_len, st));
 }

@@ -1,0 +1,152 @@
+// Merged waterfall spectrum + tuner mix + decimating FIR for Hopper
+// (sm_90a): one read of the full-rate input feeds both the display
+// spectrum and the telemetry front end.
+//
+// Replaces: jsdr_tpu/ops/pallas_kernels.py::_spec_front_kernel (wrapper
+// spectrum_front_fused). Outputs are those of spectrum_wf.cu (wf, mx, idx
+// at decimation group q) plus those of mix_decimate.cu (ds [S, T/m] and
+// the new 26-sample mixed-domain tail), and equal them bit for bit: the
+// spectrum is spectrum_body.cuh, the mix and FIR are fir_mix.cuh.
+//
+// What bounds it on this card: the spectrum's arithmetic (see
+// spectrum_wf.cu: ~96 GFLOP at 128 x 460800 samples, 1.43 ms at
+// 67 TFLOP/s fp32). The front end adds 54 FMAs per output (960 outputs
+// per 9600-sample block) and 8 bytes written per output; the merge saves
+// the second read of the input that the staged pair makes (8 bytes per
+// sample, ~0.47 GB at that shape, ~0.14 ms at 3.35 TB/s).
+//
+// Design: one CTA per (FFT block, stream), n = 960 * m samples. The CTA
+// copies its block's raw samples into shared memory, plus the 26 mixed
+// samples before it (from the previous block's input, or the carried tail
+// for block 0). It forms the block's n/m decimated outputs from shared
+// memory, mixing each sample as the FIR meets it (pattern phase t % 128,
+// block-relative as in mix_decimate.cu; n is a multiple of 128), then
+// windows the block in place and runs the spectrum body. A second small
+// launch writes the new tail, as mix_decimate.cu does. The TPU kernel's
+// grid geometry (sf_geometry: 4 or 2 FFT blocks and 3 FIR sub-chunks per
+// grid step, sized for VMEM) is not needed: each CTA owns one FFT block.
+#include <cuda_runtime.h>
+
+#include "fir_mix.cuh"
+#include "spectrum_body.cuh"
+
+namespace {
+
+using jsdr_fir::kHalo;
+using jsdr_fir::kPeriod;
+using jsdr_fir::kTaps;
+using jsdr_spec::kThreads;
+
+__global__ void __launch_bounds__(kThreads)
+spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  const float* __restrict__ win, jsdr_spec::Tables tb,
+                  const float* __restrict__ cos_pat,
+                  const float* __restrict__ sin_pat,
+                  const float* __restrict__ taps,
+                  const float* __restrict__ tail_r,
+                  const float* __restrict__ tail_i, float* __restrict__ wf,
+                  float* __restrict__ mx, int* __restrict__ idx,
+                  float* __restrict__ yr, float* __restrict__ yi,
+                  int n_streams, int t_len, int n1, int q, float cf, int m,
+                  float gain) {
+  extern __shared__ float4 smem4[];
+  __shared__ float tp[kTaps];
+  __shared__ float cs[kPeriod], sn[kPeriod];
+  __shared__ float hr[kHalo], hi[kHalo];
+  float* ar = reinterpret_cast<float*>(smem4);
+  const int n = n1 * jsdr_spec::kN2;
+  float* ai = ar + n;
+  float* buf = ai + n;
+  const int b = blockIdx.x;
+  const int s = blockIdx.y;
+  const long long row = static_cast<long long>(s) * t_len;
+  const long long at = row + static_cast<long long>(b) * n;
+
+  // ---- raw block, taps, pattern, and the 26 mixed samples before it
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    ar[t] = xr[at + t];
+    ai[t] = xi[at + t];
+  }
+  if (threadIdx.x < kTaps) tp[threadIdx.x] = taps[threadIdx.x];
+  if (threadIdx.x < kPeriod) {
+    cs[threadIdx.x] = cos_pat[s * kPeriod + threadIdx.x];
+    sn[threadIdx.x] = sin_pat[s * kPeriod + threadIdx.x];
+  }
+  if (threadIdx.x < kHalo) {
+    const int j = threadIdx.x;
+    const long long t = static_cast<long long>(b) * n - kHalo + j;
+    if (t < 0) {
+      hr[j] = tail_r[s * kHalo + j];
+      hi[j] = tail_i[s * kHalo + j];
+    } else {
+      const int p = static_cast<int>(t & (kPeriod - 1));
+      hr[j] = __fmul_rn(xr[row + t], cos_pat[s * kPeriod + p]);
+      hi[j] = __fmul_rn(xi[row + t], sin_pat[s * kPeriod + p]);
+    }
+  }
+  __syncthreads();
+
+  // ---- tuner mix + decimating FIR: this block's n/m outputs
+  const int n_out = n / m;
+  const long long out0 = static_cast<long long>(s) * (t_len / m) +
+                         static_cast<long long>(b) * n_out;
+  for (int o = threadIdx.x; o < n_out; o += kThreads) {
+    const int last = o * m + m - 1;  // block-relative sample of tap 0
+    const float2 y = jsdr_fir::fir_output(
+        [&](int a) {
+          const int u = last - a;
+          if (u < 0) return make_float2(hr[kHalo + u], hi[kHalo + u]);
+          const int p = u & (kPeriod - 1);
+          return make_float2(__fmul_rn(ar[u], cs[p]), __fmul_rn(ai[u], sn[p]));
+        },
+        tp, gain);
+    yr[out0 + o] = y.x;
+    yi[out0 + o] = y.y;
+  }
+  __syncthreads();
+
+  // ---- window in place, then the spectrum
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    const float w = win[t];
+    ar[t] = __fmul_rn(ar[t], w);
+    ai[t] = __fmul_rn(ai[t], w);
+  }
+  __syncthreads();
+  const long long line = static_cast<long long>(b) * n_streams + s;
+  jsdr_spec::spectrum_body(ar, ai, buf, n1, q, cf, tb,
+                           wf + line * (n1 / q) * jsdr_spec::kN2, mx + line,
+                           idx + line);
+}
+
+}  // namespace
+
+extern "C" int jsdr_spec_front(const float* xr, const float* xi,
+                               const float* win, const float* w1r,
+                               const float* w1i, const float* twr,
+                               const float* twi, const float* w2r,
+                               const float* w2i, const float* cos_pat,
+                               const float* sin_pat, const float* taps,
+                               const float* tail_r, const float* tail_i,
+                               float* wf, float* mx, int* idx, float* yr,
+                               float* yi, float* ntail_r, float* ntail_i,
+                               int n_streams, int t_len, int n1, int q,
+                               float cf, int m, float gain, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nblk = t_len / (n1 * jsdr_spec::kN2);
+  if (nblk > 0 && n_streams > 0) {
+    const size_t smem = jsdr_spec::smem_bytes(n1);
+    cudaError_t e = cudaFuncSetAttribute(
+        spec_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const jsdr_spec::Tables tb{w1r, w1i, twr, twi, w2r, w2i};
+    spec_front_kernel<<<dim3(nblk, n_streams), kThreads, smem, st>>>(
+        xr, xi, win, tb, cos_pat, sin_pat, taps, tail_r, tail_i, wf, mx, idx,
+        yr, yi, n_streams, t_len, n1, q, cf, m, gain);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(jsdr_fir::launch_mix_tail(
+      xr, xi, cos_pat, sin_pat, tail_r, tail_i, ntail_r, ntail_i, n_streams,
+      t_len, st));
+}

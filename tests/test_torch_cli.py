@@ -24,3 +24,30 @@ def test_cli_telemetry_prints_decoded_frames(tmp_path, capsys):
     assert f"    0: {row0}" in out
     assert "demod1 @ 9000 Hz counters: raw=480000 ds=48000" in out
     assert out.strip().endswith("frames=1")
+
+
+def test_cli_spectrum_prints_the_reference_peaks(tmp_path, capsys):
+    """``spectrum`` on the CPU: the same block count, peak frequencies and
+    (to 0.1 dB) peak levels as ``jsdr-tpu spectrum``, and the PNGs."""
+    from jsdr_tpu.app.main import main as jax_main
+
+    path = tmp_path / "tone.raw"
+    t = np.arange(2 * 96000)
+    tone = 0.5 * np.exp(2j * np.pi * 4410.0 * t / 96000)
+    noise = np.random.default_rng(4).standard_normal((2, len(t))) * 0.01
+    path.write_bytes(complex_to_s16le(
+        (tone + noise[0] + 1j * noise[1]).astype(np.complex64)))
+    png, psd_png = tmp_path / "wf.png", tmp_path / "psd.png"
+    assert main(["--seconds", "2", "spectrum", f"file:{path}", "--show",
+                 "20", "--png", str(png), "--psd-png", str(psd_png),
+                 "--ascii", "--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()
+    jax_main(["--cpu", "--seconds", "2", "spectrum", f"file:{path}",
+              "--show", "20"])
+    want = capsys.readouterr().out.splitlines()
+    assert got[0] == want[0] == "20 blocks of 9600 samples at 96000 S/s"
+    for g, w in zip(got[1:21], want[1:21]):
+        gb, wb = g.split(), w.split()
+        assert gb[:2] == wb[:2] and gb[6:] == wb[6:] == ["4410", "Hz"]
+        assert abs(float(gb[3]) - float(wb[3])) <= 0.1
+    assert png.stat().st_size > 0 and psd_png.stat().st_size > 0
