@@ -6,17 +6,20 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version on the card, and drives the port's two
-main paths: the FUNcube telemetry decode (``bpsk_block_batch`` +
+against its plain PyTorch version on the card, and drives the port's
+three main paths: the FUNcube telemetry decode (``bpsk_block_batch`` +
 ``fec_decode``) over the committed goldens and over 128 concurrent
-demodulator streams at 96 kS/s (phases 5-6), and the flagship spectrum +
+demodulator streams at 96 kS/s (phases 5-6); the flagship spectrum +
 telemetry step (``bpsk_block_batch_spectrum``) over 128 streams in 4.8 s
 blocks at 96 kS/s, then one 1 s block that takes its staged branch
-(phase 8). It checks that each path went through its kernels, then times
-more steps of each on the host clock and profiles a few with
-torch.profiler for the device-busy share. Every phase
-asserts; any failure ends the run with a non-zero exit code and no result
-line. Each measured number is printed beside the card's name and power
+(phase 8); and the streaming Session (``runtime.executor``: 128
+demodulator instances with the fused matched filter on one 96 kS/s
+stream of raw int16 chunks, beside the PSD + waterfall stage, with a
+checkpoint and resume; phase 11). It checks that each path went through
+its kernels, then times more steps of each on the host clock and
+profiles a few with torch.profiler for the device-busy share. Every
+phase asserts; any failure ends the run with a non-zero exit code and no
+result line. Each measured number is printed beside the card's name and power
 limit. The output ends with a JSON line of the kernels (launches on the
 main paths, errors against the plain versions, times, bounds), the card
 line from nvidia-smi, and ``{"ok": true, "device": {...}}`` as the last
@@ -48,6 +51,13 @@ MIX_CASES = ((128, 96000, 96000), (64, 192000, 192000), (13, 95440, 96000))
 SPEC_CASES = ((128, 460800, 96000), (256, 460800, 192000), (13, 96000, 96000),
               (128, 96000, 96000))
 FLAGSHIP_SHAPE = (128, 460800)      # streams x samples per 4.8 s block
+# kernel 5: (rows, bins, width): the Session's 1 s block of 0.1 s spectra
+# at 96 k and 192 k, 128 streams' 1 s of blocks, and an odd width
+PSD_CASES = ((10, 9600, 960), (10, 19200, 960), (1280, 9600, 960),
+             (10, 9600, 75))
+# the Session's stream: frames at 3 of the 21 tunings, 7 s of 1 s blocks
+SESSION_CARRIERS = (7500.0, 13500.0, 19500.0)
+SESSION_BLOCKS = 7
 SEED = 2026
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): fp32 outside the tensor
 # cores, and device memory
@@ -175,6 +185,13 @@ def main() -> int:
     # ---- phase 8: the flagship step at a deployment's size -----------------
     flagship = phase_flagship(torch, np, dev, rng, tag, k3)
 
+    # ---- phases 9-10: kernels 5 and 6 against their plain versions -------
+    k5 = phase_psd_waterfall(torch, np, dev, tag)
+    k6 = phase_mix_decimate_mf(torch, np, dev, rng, tag)
+
+    # ---- phase 11: the streaming Session at a deployment's size -----------
+    session = phase_session(torch, np, dev, rng, tag)
+
     need("jax" not in sys.modules and "jsdr_tpu" not in sys.modules,
          "jax or the JAX package was imported")
     print(json.dumps({"kernels": [
@@ -194,6 +211,15 @@ def main() -> int:
              source="jsdr_tpu_torch/ops/csrc/spectrum_wf.cu",
              replaces="jsdr_tpu/ops/pallas_kernels.py:275",
              launches=flagship["spectrum_fused"], **k4),
+        dict(name="psd_waterfall", route="cuda",
+             source="jsdr_tpu_torch/ops/csrc/psd_waterfall.cu",
+             replaces="jsdr_tpu/ops/pallas_kernels.py:44",
+             launches=session["psd_waterfall"], **k5),
+        dict(name="mix_decimate_mf", route="cuda",
+             source="jsdr_tpu_torch/ops/csrc/mix_dec_mf.cu",
+             replaces="jsdr_tpu/ops/pallas_kernels.py:955",
+             launches=session["mix_decimate_mf"],
+             **{k: v for k, v in k6.items() if k != "chain_ms"}),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -229,19 +255,30 @@ def step_times(torch, step, steps: int, profiled: int, tag: str,
     for the device-busy time per step (the kernels' device time; one
     stream, so they do not overlap) and the largest kernels. Prints the
     mean, spread and split; returns the mean ms per step."""
-    from torch.profiler import ProfilerActivity, profile
-
     wall = []
     for _ in range(steps):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler(torch) as prof:
         for _ in range(profiled):
             step()
             torch.cuda.synchronize()
+    return report_steps(torch, wall, prof, profiled, tag, what)
+
+
+def profiler(torch):
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def report_steps(torch, wall, prof, profiled: int, tag: str,
+                 what: str) -> float:
+    """Print the mean and spread of the host-clock step times ``wall``
+    (ms) and the device-busy time per step, idle share and largest kernels
+    of ``profiled`` steps traced by ``prof``; returns the mean."""
+    steps = len(wall)
     rows = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -848,6 +885,349 @@ def phase_flagship(torch, np, dev, rng, tag, k3):
                f"staged step bpsk_block_batch_spectrum S={s} T={rate}")
     return {"spectrum_front_fused": merged["spectrum_front_fused"],
             "spectrum_fused": staged["spectrum_fused"]}
+
+
+def phase_psd_waterfall(torch, np, dev, tag):
+    """Phase 9: kernel 5 (PSD + 8-bit waterfall line) against its plain
+    version, bit for bit (both round every product and sum in the same
+    order and take log10f), at the Session's shapes: one 1 s block of
+    0.1 s spectra at 96 k and at 192 k, 128 streams' 1 s of blocks (for a
+    time and a bound at scale), and an odd width. Returns the row at the
+    Session's shape (10 x 9600, width 960)."""
+    from jsdr_tpu_torch.ops.cplx import CF
+    from jsdr_tpu_torch.ops.psd_waterfall import (psd_waterfall,
+                                                  psd_waterfall_ref)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    row = None
+    for b, n, width in PSD_CASES:
+        # spectra of a noise floor with a strong bin per row, and some
+        # bins far below the floor (clipped to intensity 0)
+        def spectrum():
+            x = CF(40.0 * torch.randn((b, n), generator=gen, device=dev),
+                   40.0 * torch.randn((b, n), generator=gen, device=dev))
+            x.re[:, n // 7] = 3e4
+            x.re[:, 5::97] *= 1e-7
+            x.im[:, 5::97] *= 1e-7
+            return x
+        inputs = [(spectrum(), width) for _ in range(3)]
+        k = psd_waterfall(*inputs[0])
+        p = psd_waterfall_ref(*inputs[0])
+        torch.cuda.synchronize()
+        label = f"B={b} N={n} width={width}"
+        need(tuple(k[0].shape) == (b, n) and tuple(k[1].shape) == (b, width)
+             and k[1].dtype == torch.uint8
+             and bool(torch.isfinite(k[0]).all()),
+             f"psd_waterfall {label}: misshapen or non-finite output")
+        db_err = float((k[0] - p[0]).abs().max())
+        line_diff = int((k[1].int() - p[1].int()).abs().max())
+        need(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+             f"psd_waterfall {label}: kernel differs from plain (db "
+             f"{db_err} dB, lines {line_diff} counts)")
+        ms = time_ms(torch, psd_waterfall, inputs, 20)
+        plain_ms = time_ms(torch, psd_waterfall_ref, inputs, 5)
+        # per bin: 2 squares, a sum, the scale, dB scale, max (+ log10f);
+        # bytes: the two planes in, db and the line out
+        b_ms, b_by = bound(6.0 * b * n, 12.0 * b * n + b * width)
+        print(f"{tag} psd_waterfall {label}: db and lines equal to plain "
+              f"(bit for bit); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms by {b_by}")
+        if (b, n, width) == PSD_CASES[0]:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None, max_abs_err=db_err)
+    return row
+
+
+def phase_mix_decimate_mf(torch, np, dev, rng, tag):
+    """Phase 10: kernel 6 (mix + decimate + VCO mix + matched filter)
+    against its plain version (the unfused chain: mf within 2e-5 of
+    max|mf|, fp32 sums in other orders) and against kernel 1 on the same
+    input: its ds tail equal to kernel 1's and its mf tail equal to the
+    last 64 of [mf tail ++ _vco_mix(kernel 1's output)], bit for bit.
+    Times it beside the plain version and the unfused device chain
+    (kernel 1, the VCO mix, the cuDNN matched filter). Returns the row at
+    the main path's shape (128 x 96,000)."""
+    from jsdr_tpu_torch.demod.bpsk import (DM_FILTER, DS_FILTER,
+                                           HOWARD_FUDGE_FACTOR, NU_SCALE,
+                                           _nco_pattern, _vco_mix,
+                                           _vco_pattern, tunings_to_nu)
+    from jsdr_tpu_torch.ops.cplx import CF
+    from jsdr_tpu_torch.ops.fir import fir_apply_streaming
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.mix_decimate_mf import (mix_decimate_mf,
+                                                    mix_decimate_mf_ref)
+
+    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    mf_taps = torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev)
+    row, worst = None, 0.0
+    for s, t_len, rate in MIX_CASES:
+        m = rate // 9600
+
+        def rand(*shape):
+            return torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                   device=dev)
+
+        step = 750 if rate == 96000 else 1500
+        tu = torch.as_tensor(tunings_to_nu(step * (8 + np.arange(s) % 21)),
+                             dtype=torch.int64, device=dev)
+        nu0 = torch.as_tensor(rng.integers(0, NU_SCALE * rate, s),
+                              dtype=torch.float32, device=dev)
+        cos_pat, sin_pat = _nco_pattern(nu0, tu, rate)
+        vco_idx = torch.as_tensor(rng.integers(0, 8, s), dtype=torch.int32,
+                                  device=dev)
+        vco_cos, vco_sin = _vco_pattern(vco_idx)
+        inputs = [(CF(rand(s, t_len), rand(s, t_len)), cos_pat, sin_pat, taps,
+                   m, CF(rand(s, 26), rand(s, 26)), vco_cos, vco_sin,
+                   mf_taps, CF(rand(s, 64), rand(s, 64)),
+                   HOWARD_FUDGE_FACTOR) for _ in range(3)]
+
+        def unfused(x, cp, sp, tp, m_, tail, _vc, _vs, mt, mtail, gain):
+            ds, ntail = mix_decimate(x, cp, sp, tp, m_, tail, gain)
+            bb, _ = _vco_mix(ds, vco_idx)
+            mf, nmtail = fir_apply_streaming(bb, mt, mtail)
+            return mf, ntail, nmtail
+
+        a = inputs[0]
+        k = mix_decimate_mf(*a)
+        p = mix_decimate_mf_ref(*a)
+        ds1, tail1 = mix_decimate(*a[:6], HOWARD_FUDGE_FACTOR)
+        bb1, _ = _vco_mix(ds1, vco_idx)
+        torch.cuda.synchronize()
+        label = f"S={s} T={t_len} m={m}"
+        need(tuple(k[0].re.shape) == (s, t_len // m)
+             and bool(torch.isfinite(k[0].re).all()),
+             f"mix_decimate_mf {label}: misshapen or non-finite output")
+        scale = max(float(p[0].re.abs().max()), float(p[0].im.abs().max()))
+        err = max(float((k[0].re - p[0].re).abs().max()),
+                  float((k[0].im - p[0].im).abs().max()))
+        need(err <= 2e-5 * scale, f"mix_decimate_mf {label}: max|kernel-"
+             f"plain| {err} > 2e-5 * {scale}")
+        mt_err = max(float((k[2].re - p[2].re).abs().max()),
+                     float((k[2].im - p[2].im).abs().max()))
+        need(mt_err <= 2e-5 * scale, f"mix_decimate_mf {label}: mf tail "
+             f"|kernel-plain| {mt_err} > 2e-5 * {scale}")
+        need(torch.equal(k[1].re, tail1.re) and torch.equal(k[1].im,
+                                                            tail1.im),
+             f"mix_decimate_mf {label}: ds tail is not kernel 1's")
+        want = [torch.cat([a[9].re, bb1.re], dim=1)[:, -64:],
+                torch.cat([a[9].im, bb1.im], dim=1)[:, -64:]]
+        need(torch.equal(k[2].re, want[0]) and torch.equal(k[2].im, want[1]),
+             f"mix_decimate_mf {label}: mf tail is not the VCO mix of "
+             "kernel 1's output")
+        worst = max(worst, err)
+        ms = time_ms(torch, mix_decimate_mf, inputs, 20)
+        plain_ms = time_ms(torch, mix_decimate_mf_ref, inputs, 5)
+        chain_ms = time_ms(torch, unfused, inputs, 10)
+        flops = (2.0 * s * t_len
+                 + (2 * 27 * 2 + 2 + 2 * 65 * 2) * s * (t_len / m))
+        nbytes = (8.0 * s * t_len + 8.0 * s * (t_len // m)
+                  + 4 * 4.0 * s * 128 + 4 * (27 + 65)
+                  + 2 * 8.0 * s * (26 + 64))
+        b_ms, b_by = bound(flops, nbytes)
+        gbs = nbytes / ms / 1e6
+        print(f"{tag} mix_decimate_mf {label}: max|k-p| {err:.3e} (<= 2e-5 x "
+              f"{scale:.3e}), mf tail {mt_err:.3e}; ds tail == kernel 1's "
+              f"and mf tail == VCO mix of kernel 1's output, bit for bit; "
+              f"kernel {ms:.4f} ms ({gbs:.0f} GB/s), plain {plain_ms:.4f} "
+              f"ms, unfused device chain {chain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}")
+        if (s, t_len) == MAIN_SHAPE:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None, chain_ms=chain_ms)
+        del inputs, k, p, ds1, bb1
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return row
+
+
+def session_signal(rng, rate: int):
+    """One 96 kS/s stream carrying AO-40 frames at SESSION_CARRIERS (each
+    from its own payload, starting 0.5 s after the previous one, noise rms
+    0.05), as raw S16LE int16 values in 0.1 s chunks (a capture device's
+    reads). Returns (chunks, payloads by carrier, blocks)."""
+    from jsdr_tpu_torch.io.convert import complex_to_s16le
+    from jsdr_tpu_torch.io.sources import synth_bpsk_stream
+
+    payloads = rng.integers(0, 256, (len(SESSION_CARRIERS), 256),
+                            dtype=np.uint8)
+    sig = np.zeros(SESSION_BLOCKS * rate, np.complex64)
+    for i, c in enumerate(SESSION_CARRIERS):
+        one = synth_bpsk_stream(payloads[i:i + 1], rate=rate,
+                                carrier_offset=c, amplitude=0.25,
+                                preamble_bits=200, noise_rms=0.0, seed=i)
+        at = i * rate // 2
+        need(at + len(one) <= len(sig), "session frames longer than the run")
+        sig[at:at + len(one)] += one
+    noise = np.random.default_rng(SEED).standard_normal((2, len(sig))) * 0.05
+    sig = (sig + noise[0] + 1j * noise[1]).astype(np.complex64)
+    raw = np.frombuffer(complex_to_s16le(sig), "<i2")
+    chunk = 2 * rate // 10
+    return ([raw[i:i + chunk].copy() for i in range(0, len(raw), chunk)],
+            dict(zip(SESSION_CARRIERS, payloads)))
+
+
+def phase_session(torch, np, dev, rng, tag):
+    """Phase 11: the streaming Session at a deployment's size: 128
+    FUNcube demodulator instances (tunings over the 21 multiples of
+    750 Hz from 6000 to 21000 Hz, BpskConfig(fuse_mf=True)) on one
+    96 kS/s stream of raw int16 chunks converted on the device, in 1 s
+    blocks, beside SpectrumStage(waterfall_width=960); sync_every=4.
+    Every instance tuned to a carrier decodes its payload exactly once,
+    bit-exact; every good frame carries a sent payload (an instance tuned
+    2250 Hz from a carrier may decode it too: the reference's
+    non-complex VCO mix answers its image); instances on one tuning
+    publish the same frames; no block is dropped and no stage fails; kernels 5, 6 and 2 launch once per block (kernel 1
+    never). A checkpoint written after 3 blocks and resumed in a new
+    Session ends with the frames, counters and state of the uninterrupted
+    run. Then 10 timed and 3 profiled Session blocks of this
+    configuration and of the same Session unfused (no fuse_mf, no
+    waterfall width). Returns the launch counts of the counted run."""
+    import io
+    import itertools
+
+    from jsdr_tpu_torch.demod.bpsk import BpskConfig
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
+    from jsdr_tpu_torch.ops.psd_waterfall import psd_waterfall
+    from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
+    from jsdr_tpu_torch.runtime.executor import (Session, SpectrumStage,
+                                                 TelemetryStage)
+    from jsdr_tpu_torch.runtime.log import Logger
+    from jsdr_tpu_torch.runtime.state import tree_leaves
+
+    rate, s = 96000, MAIN_SHAPE[0]
+    tunings = 6000.0 + 750.0 * (np.arange(s) % 21)
+    t0 = time.perf_counter()
+    chunks, payloads = session_signal(rng, rate)
+    print(f"session: one {rate} S/s stream, {SESSION_BLOCKS} s, frames at "
+          f"{SESSION_CARRIERS} Hz, {len(chunks)} raw chunks synthesised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    counted = (psd_waterfall, mix_decimate_mf, timing_recover_batch,
+               mix_decimate)
+    ck_path = ROOT / "build" / "chip_smoke_session.npz"
+    ck_path.parent.mkdir(exist_ok=True)
+
+    def stages(fused=True, sync_every=4):
+        cfg = BpskConfig(rate=rate, fuse_mf=fused)
+        return [SpectrumStage(rate, waterfall_width=960 if fused else None),
+                TelemetryStage(cfg, tunings, sync_every=sync_every,
+                               device=dev)]
+
+    def run(source, stg, resume=False, every=0):
+        log = io.StringIO()
+        session = Session(source=iter(source), block_samples=rate,
+                          logger=Logger(stream=log), device=dev,
+                          checkpoint_path=ck_path,
+                          checkpoint_every_blocks=every,
+                          checkpoint_meta={"rate": rate, "n_demods": s,
+                                           "mesh": None})
+        if resume:
+            session.load_checkpoint(stg)
+        got = {"telemetry-frame": [], "waterfall-line": [], "fft-psd": []}
+        session.pubsub.listen(lambda t, v: got[t].append(v) if t in got
+                              else None)
+        n = session.run(stg)
+        need(session.dropped_blocks == {},
+             f"session dropped blocks: {session.dropped_blocks}")
+        need("failed" not in log.getvalue(),
+             f"a session stage failed: {log.getvalue()[:400]}")
+        frames = [(f["demod"], f["ok"], f["corr"], f["channel_errors"],
+                   f["payload"].tobytes()) for f in got["telemetry-frame"]]
+        return n, frames, got
+
+    # the counted main-path run
+    stg = stages()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    n, frames, got = run(chunks, stg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    need(n == SESSION_BLOCKS, f"session ran {n} blocks")
+    need(launches == {"psd_waterfall": n, "mix_decimate_mf": n,
+                      "timing_recover_batch": n, "mix_decimate": 0},
+         f"session launches {launches}: want kernels 5, 6 and 2 once per "
+         "block, kernel 1 never")
+    ok = [f for f in frames if f[1]]
+    tuned = [i for i in range(s) if tunings[i] in payloads]
+    by_inst = {i: [f[1:] for f in frames if f[0] == i] for i in range(s)}
+    need(all([g[0] for g in by_inst[i] if g[0]] == [True]
+             and [g[3] for g in by_inst[i] if g[0]]
+             == [payloads[tunings[i]].tobytes()] for i in tuned),
+         "an instance tuned to a carrier did not decode its payload exactly "
+         "once")
+    sent = {p.tobytes() for p in payloads.values()}
+    need(all(f[4] in sent for f in ok), "a good frame carries a payload "
+         "that was not sent")
+    # instances on one tuning see the same input from the same state
+    need(all(by_inst[i] == by_inst[i % 21] for i in range(s)),
+         "instances with the same tuning published different frames")
+    images = sorted({float(tunings[f[0]]) for f in ok} - set(payloads))
+    lines, psd = got["waterfall-line"], got["fft-psd"]
+    need(len(lines) == n and all(x.shape == (10, 960) and x.dtype == np.uint8
+                                 for x in lines)
+         and all(x.shape == (10, 9600) and np.isfinite(x).all()
+                 for x in psd), "session: waterfall lines or PSDs misshapen")
+    counters = stg[1].state.counters.cpu().numpy()
+    need((counters[:, 0] == n * rate).all() and (counters[:, 1] == n * rate
+                                                 // 10).all(),
+         "session: raw/ds counters wrong")
+    print(f"{tag} session: {n} blocks, {len(tuned)} instances tuned to a "
+          f"carrier each decoded its payload bit-exact ({len(frames)} frames "
+          f"published, {len(ok)} good; instances at {images} Hz also "
+          f"decoded a sent payload); launches {launches}; no block "
+          f"dropped; {wall:.2f} s wall with FEC drains")
+
+    # checkpoint after 3 blocks, resume in a new Session
+    k = 3 * 10
+    ck_path.unlink(missing_ok=True)
+    n1, frames1, _ = run(chunks[:k], stages(), every=3)
+    need(n1 == 3 and ck_path.exists(), "session: no checkpoint written")
+    resumed = stages()
+    n2, frames2, _ = run(chunks[k:], resumed, resume=True)
+    need(frames1 + frames2 == frames,
+         "resumed session: frames differ from the uninterrupted run")
+    need(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed[1].state), tree_leaves(stg[1].state))),
+         "resumed session: state differs from the uninterrupted run")
+    print(f"{tag} session checkpoint: written after {n1} blocks, resumed for "
+          f"{n2} more; frames, counters and state equal to the "
+          "uninterrupted run")
+
+    # Session blocks timed on the host clock (each ends in a synchronise,
+    # at the 'audio-frame' mark the Session publishes after every block)
+    # and profiled; no drain inside the window
+    means = {}
+    for fused in (True, False):
+        stg = stages(fused, sync_every=10 ** 6)
+        marks = []
+        prof = profiler(torch)
+
+        def on_block(topic, _n):
+            if topic != "audio-frame":
+                return
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) == 11:
+                prof.start()
+            elif len(marks) == 14:
+                prof.stop()
+
+        session = Session(source=itertools.cycle(chunks), block_samples=rate,
+                          device=dev)
+        session.pubsub.listen(on_block)
+        session.run(stg, max_blocks=14)
+        wall = list(np.diff(marks[:11]) * 1e3)
+        what = ("session block, fused (SpectrumStage waterfall 960 + "
+                "TelemetryStage fuse_mf)" if fused else
+                "session block, unfused (SpectrumStage + TelemetryStage)")
+        means[fused] = report_steps(torch, wall, prof, 3, tag,
+                                    f"{what}, {s} instances, T={rate}")
+    print(f"{tag} session: fused {means[True]:.3f} ms/block, unfused "
+          f"{means[False]:.3f} ms/block (host clock, same call)")
+    return launches
 
 
 if __name__ == "__main__":

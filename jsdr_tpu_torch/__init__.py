@@ -11,15 +11,20 @@ tensors; there is no fallback between the two.
 
 The package never imports jax, nor anything of ``jsdr_tpu``: the
 JAX-free host modules it needs (``fec.tables``, ``fec.ref_numpy``,
-``io.convert``, ``io.sources``, ``io.flac``, ``display.waterfall``,
-``display.render`` and the CLI's host helpers) are copies, held equal to
-the reference's by tests/test_torch_host_copies.py.
+``io.convert``, ``io.sources``, ``io.flac``, ``io.framer``,
+``io.recorder``, ``io.live``, ``io.fcd``, ``runtime.pubsub``,
+``runtime.log``, ``display.waterfall``, ``display.render`` and the CLI's
+host helpers) are copies, held equal to the reference's by
+tests/test_torch_host_copies.py.
 
 Ported so far: the telemetry decode path in "pattern" tuning mode —
-``demod.bpsk.bpsk_block_batch`` and ``fec.decoder.fec_decode`` — the
-flagship spectrum + telemetry step ``demod.bpsk.bpsk_block_batch_spectrum``
-with ``ops.spectrum`` (``spectrum_block``, ``spectrum_wide``), and the
-``jsdr-tpu-torch telemetry`` and ``spectrum`` commands. ROADMAP.md lists
+``demod.bpsk.bpsk_block_batch`` (with ``BpskConfig.fuse_mf``) and
+``fec.decoder.fec_decode`` — the flagship spectrum + telemetry step
+``demod.bpsk.bpsk_block_batch_spectrum`` with ``ops.spectrum``
+(``spectrum_block``, ``spectrum_wide``), the streaming Session
+(``runtime.executor``, ``runtime.state``, ``io.convert_device``), and the
+``jsdr-tpu-torch telemetry`` and ``spectrum`` commands. All six TPU
+kernels of the JAX package have their CUDA counterpart. ROADMAP.md lists
 what is still to port.
 """
 

@@ -8,7 +8,10 @@ Per block of [S, T] stream rows (T a multiple of 8*decim):
    quantized-table index sequence is 128-periodic for every tuning that
    ``pattern_mix_ok`` accepts, e.g. any multiple of 750 Hz at 96 kS/s);
 2. 1200 Hz VCO mix (exactly pi/4 per decimated sample) and the 65-tap
-   matched filter with its carried tail (plain torch);
+   matched filter with its carried tail (plain torch); with
+   ``BpskConfig.fuse_mf`` steps 1 and 2 are ONE kernel,
+   :func:`jsdr_tpu_torch.ops.mix_decimate_mf.mix_decimate_mf`, and the
+   decimated stream never reaches device memory;
 3. bit-timing recovery — the second kernel,
    :func:`jsdr_tpu_torch.ops.timing_kernel.timing_recover_batch`;
 4. bit compaction, stride-80 sync correlation at every bit position and
@@ -23,8 +26,8 @@ staged pair runs (``ops.spectrum_fused.spectrum_waterfall``, then
 Values, layouts and carried state match the reference; where the JAX code
 avoids TPU gathers (one-hot row matmuls, masked reductions) this port
 indexes directly. The "general" and "static" mix modes, the FFT
-auto-tuner (``dofft``), ``compat_scan`` and ``fuse_mf`` are not ported
-yet and raise ``NotImplementedError`` (ROADMAP.md, queue 2).
+auto-tuner (``dofft``) and ``compat_scan`` are not ported yet and raise
+``NotImplementedError`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..fec.tables import SYNC_VECTOR
 from ..ops.cplx import CF
 from ..ops.fir import fir_apply_streaming
 from ..ops.mix_decimate import mix_decimate
+from ..ops.mix_decimate_mf import mix_decimate_mf
 from ..ops.spectrum import bin_to_hz
 from ..ops.spectrum_front import sf_geometry, spectrum_front_fused
 from ..ops.spectrum_fused import spectrum_waterfall
@@ -111,7 +115,8 @@ class BpskConfig(NamedTuple):
     track_high: bool = False   # auto-tune searches the upper half-band
     compat_scan: bool = False  # per-sample timing scan (not ported)
     fuse_mf: bool = False      # VCO + matched filter in the front-end
-                               # kernel (not ported)
+                               # kernel (mix_decimate_mf); the spectrum
+                               # step then takes its staged branch
 
     @property
     def decim(self) -> int:
@@ -296,6 +301,17 @@ def _vco_mix(ds: CF, vco_idx: torch.Tensor):
     return CF(ds.re * c, ds.im * s), ((vco_idx.long() + k) % 8).to(torch.int32)
 
 
+def _vco_pattern(vco_idx: torch.Tensor):
+    """[S, 128] VCO quadrature patterns for the fused front-end kernel
+    (:801-807): decimated position p has phase index (vco_idx + p) % 8,
+    and 128 % 8 == 0, so the pattern repeats over the whole block."""
+    dev = vco_idx.device
+    m8 = (vco_idx.long()[:, None]
+          + torch.arange(128, device=dev)[None, :]) % SAMPLES_PER_BIT
+    return (torch.as_tensor(_VCO_COS, device=dev)[m8],
+            torch.as_tensor(_VCO_SIN, device=dev)[m8])
+
+
 def _compact_bits(valid: torch.Tensor, bit: torch.Tensor, max_bits: int):
     """Valid decisions as +/-1 int8, in order, into [S, max_bits] (0 pad);
     n_bits = min(#valid, max_bits)."""
@@ -380,9 +396,6 @@ def _pattern_tunings(iq: CF, cfg: BpskConfig, tunings, dofft) -> np.ndarray:
             "8-sample bit periods)")
     if cfg.compat_scan:
         raise _not_ported("compat_scan (the per-sample timing scan)")
-    if cfg.fuse_mf:
-        raise _not_ported("fuse_mf (the fused mix/decimate/matched-filter "
-                          "kernel)")
     if np.any(cfg.dofft if dofft is None else dofft):
         raise _not_ported("dofft (the FFT auto-tune front end)")
     if tunings is None:
@@ -403,14 +416,25 @@ def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
                 ) -> Tuple[BpskBlockOut, BpskState]:
     """The decimated-domain stages after the front end (the counterpart of
     ``jsdr_tpu.demod.bpsk._bpsk_post_batch``): VCO mix + matched filter,
-    timing recovery, compaction, sync search, window extraction, and the
-    carried state."""
-    dev = ds.re.device
+    then :func:`_post_mf_batch`."""
     bb, vco_idx = _vco_mix(ds, states.vco_idx)
-    mf, mf_tail = fir_apply_streaming(
-        bb, torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev),
-        states.mf_tail)
+    mf, mf_tail = fir_apply_streaming(bb, _mf_taps(ds.re.device),
+                                      states.mf_tail)
+    return _post_mf_batch(mf, states, tu_phase, ds_tail, mf_tail, vco_idx,
+                          t_len, max_hits)
 
+
+def _mf_taps(dev) -> torch.Tensor:
+    return torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev)
+
+
+def _post_mf_batch(mf: CF, states: BpskState, tu_phase: torch.Tensor,
+                   ds_tail: CF, mf_tail: CF, vco_idx: torch.Tensor,
+                   t_len: int, max_hits: int
+                   ) -> Tuple[BpskBlockOut, BpskState]:
+    """The chain from the matched-filter output onward (the counterpart of
+    ``jsdr_tpu.demod.bpsk._bpsk_post_mf_batch``): timing recovery,
+    compaction, sync search, window extraction, and the carried state."""
     # timing recovery kernel
     tm = states.timing
     valid, bit, e_ema, peak, new_peak, e_out, last_iq = timing_recover_batch(
@@ -419,7 +443,7 @@ def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
     timing = TimingState(e_ema, tm.pos, peak, new_peak, e_out, last_iq)
 
     # compaction, sync search, window extraction
-    ds_len = ds.shape[-1]
+    ds_len = mf.shape[-1]
     max_bits = 2 * (ds_len // SAMPLES_PER_BIT) + 2
     bits, n_bits = _compact_bits(valid, bit, max_bits)
     windows, hit_corr, n_hits, ring = soft_frames_from_bits(
@@ -447,8 +471,10 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     array-like [S] of per-stream NCO Hz (default cfg.tuning for every
     stream); each must satisfy ``pattern_mix_ok`` (e.g. a multiple of
     750 Hz at 96 kS/s). ``dofft``: host bool array-like [S]
-    (default cfg.dofft); any True raises NotImplementedError. Returns the
-    block's output and the carried state."""
+    (default cfg.dofft); any True raises NotImplementedError. With
+    ``cfg.fuse_mf`` the front end, VCO mix and matched filter run as one
+    kernel (``mix_decimate_mf``) instead of kernel 1 and two torch passes.
+    Returns the block's output and the carried state."""
     t_len = iq.shape[-1]
     dev = iq.re.device
     tun = _pattern_tunings(iq, cfg, tunings, dofft)
@@ -459,6 +485,16 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
     taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
     iq = CF(iq.re.contiguous(), iq.im.contiguous())
+    if cfg.fuse_mf:
+        # front end + VCO + matched filter: one kernel (:857-864, :973-979)
+        vco_cos, vco_sin = _vco_pattern(states.vco_idx)
+        mf, ds_tail, mf_tail = mix_decimate_mf(
+            iq, cos_pat, sin_pat, taps, cfg.decim, states.ds_tail, vco_cos,
+            vco_sin, _mf_taps(dev), states.mf_tail, HOWARD_FUDGE_FACTOR)
+        vco_idx = ((states.vco_idx.long() + t_len // cfg.decim)
+                   % SAMPLES_PER_BIT).to(torch.int32)
+        return _post_mf_batch(mf, states, tu_phase, ds_tail, mf_tail,
+                              vco_idx, t_len, cfg.max_hits_per_block)
     ds, ds_tail = mix_decimate(iq, cos_pat, sin_pat, taps, cfg.decim,
                                states.ds_tail, HOWARD_FUDGE_FACTOR)
     return _post_batch(ds, states, tu_phase, ds_tail, t_len,
@@ -507,9 +543,10 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
     reads the input once for both the waterfall and the front end;
     otherwise the staged pair runs (``spectrum_waterfall``, then
     :func:`bpsk_block_batch`: one more read of the input) with the same
-    results. ``dofft``, ``fuse_mf``, ``compat_scan`` and tunings outside
-    pattern mode raise NotImplementedError, as in
-    :func:`bpsk_block_batch`."""
+    results; ``fuse_mf`` takes the staged branch, whose
+    :func:`bpsk_block_batch` runs the fused matched-filter kernel.
+    ``dofft``, ``compat_scan`` and tunings outside pattern mode raise
+    NotImplementedError, as in :func:`bpsk_block_batch`."""
     t_len = iq.shape[-1]
     dev = iq.re.device
     tun = _pattern_tunings(iq, cfg, tunings, None)

@@ -45,6 +45,12 @@ _SIGNATURES = {
     # tail_i, wf, mx, idx, yr, yi, ntail_r, ntail_i, n_streams, t_len, n1,
     # q, cf, m, gain, stream
     "jsdr_spec_front": [_P] * 21 + [_I, _I, _I, _I, _F, _I, _F, _P],
+    # re, im, db, line, n_rows, n, width, cf, stream
+    "jsdr_psd_waterfall": [_P] * 4 + [_I, _I, _I, _F, _P],
+    # xr, xi, cos, sin, taps, tail_r, tail_i, vco_cos, vco_sin, mf_taps,
+    # mtail_r, mtail_i, yr, yi, ntail_r, ntail_i, nmtail_r, nmtail_i,
+    # n_streams, t_len, m, gain, stream
+    "jsdr_mix_dec_mf": [_P] * 18 + [_I, _I, _I, _F, _P],
 }
 
 

@@ -1,1 +1,3 @@
-"""Runtime helpers of the port: device selection."""
+"""Runtime services of the port: device selection, pub/sub, logging with
+stage timers, stream-state checkpoints in the reference's format, and the
+streaming Session executor."""

@@ -131,8 +131,6 @@ def test_unported_modes_raise():
         TB.bpsk_block_batch(x, cfg._replace(dofft=True), st)
     with pytest.raises(NotImplementedError, match="compat_scan"):
         TB.bpsk_block_batch(x, cfg._replace(compat_scan=True), st)
-    with pytest.raises(NotImplementedError, match="fuse_mf"):
-        TB.bpsk_block_batch(x, cfg._replace(fuse_mf=True), st)
     with pytest.raises(ValueError, match="multiple of 8"):
         TB.bpsk_block_batch(CF(x.re[:, :9560], x.im[:, :9560]), cfg, st)
 
@@ -157,3 +155,58 @@ def test_nco_pattern_and_advance_match_reference():
             ta = TB._nco_advance(torch.from_numpy(nu0),
                                  torch.from_numpy(nu).long(), rate, n)
             np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+
+
+@pytest.mark.parametrize("rate,tunings", [(96000, [12000.0]),
+                                          (96000, [12000.0, 9000.0])])
+def test_fuse_mf_chain_matches_jax_pallas(rate, tunings):
+    """``BpskConfig(fuse_mf=True)`` (kernel 6's plain version on the CPU)
+    against JAX's fused chain, ``bpsk_block_batch(use_pallas=True)`` with
+    its kernels in interpret mode, on the reference's test signal
+    (tests/test_bpsk_chain.py:290-315): the same hits, hit_corr and
+    decoded payloads in every block. The reference's kernel reassociates
+    the FIR sums (bf16x3 banded matmuls), so only decisions are held
+    equal, as its own test does."""
+    from jsdr_tpu.fec.decoder import fec_decode as j_fec
+    from jsdr_tpu_torch.fec.decoder import fec_decode as t_fec
+
+    rng = np.random.default_rng(1234)
+    payloads = rng.integers(0, 256, (len(tunings), 256), dtype=np.uint8)
+    sigs = [synth_bpsk_stream(payloads[i:i + 1], rate=rate,
+                              carrier_offset=tu, preamble_bits=200)
+            for i, tu in enumerate(tunings)]
+    n = max(map(len, sigs))
+    n += (-n) % rate
+    iq = np.zeros((len(tunings), n), np.complex64)
+    for i, sig in enumerate(sigs):
+        iq[i, :len(sig)] = sig
+    cfg = JB.BpskConfig(rate=rate, tuning=tunings[0], fuse_mf=True)
+    tcfg = TB.BpskConfig(rate=rate, tuning=tunings[0], fuse_mf=True)
+    st_j = JB.bpsk_init_batch(cfg, len(tunings))
+    st_t = TB.bpsk_init_batch(tcfg, len(tunings), "cpu")
+    decoded = []
+    for b in range(n // rate):
+        blk = iq[:, b * rate:(b + 1) * rate]
+        out_j, st_j = JB.bpsk_block_batch(
+            JCF(jnp.asarray(blk.real.copy()), jnp.asarray(blk.imag.copy())),
+            cfg, st_j, tunings, use_pallas=True)
+        out_t, st_t = _port_block(blk, tcfg, st_t, tunings)
+        for name in ("n_hits", "hit_corr"):
+            np.testing.assert_array_equal(getattr(out_t, name).numpy(),
+                                          np.asarray(getattr(out_j, name)))
+        np.testing.assert_array_equal(st_t.vco_idx.numpy(),
+                                      np.asarray(st_j.vco_idx))
+        for s in range(len(tunings)):
+            nh = int(out_t.n_hits[s])
+            if nh:
+                rt, rj = t_fec(out_t.windows[s, :nh]), j_fec(
+                    out_j.windows[s, :nh])
+                np.testing.assert_array_equal(rt.ok.numpy(),
+                                              np.asarray(rj.ok))
+                np.testing.assert_array_equal(rt.payload.numpy(),
+                                              np.asarray(rj.payload))
+                decoded += [(s, p) for p, ok in zip(rt.payload.numpy(),
+                                                    rt.ok.numpy()) if ok]
+    assert [s for s, _ in decoded] == list(range(len(tunings)))
+    for s, p in decoded:
+        np.testing.assert_array_equal(p, payloads[s])

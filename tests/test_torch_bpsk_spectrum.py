@@ -191,6 +191,35 @@ def test_unported_modes_raise():
     x = CF(torch.zeros(1, 38400), torch.zeros(1, 38400))
     with pytest.raises(NotImplementedError, match="general"):
         TB.bpsk_block_batch_spectrum(x, cfg, st, [12345.0])
-    for flag in ("dofft", "compat_scan", "fuse_mf"):
+    for flag in ("dofft", "compat_scan"):
         with pytest.raises(NotImplementedError, match=flag):
             TB.bpsk_block_batch_spectrum(x, cfg._replace(**{flag: True}), st)
+
+
+def test_fuse_mf_takes_the_staged_branch():
+    """With ``fuse_mf`` a block the merged kernel could take goes through
+    the staged pair, as the reference's rule says (bpsk.py:1082):
+    spectrum_waterfall, then bpsk_block_batch with the fused matched
+    filter, bit for bit; and the frame decodes."""
+    rate, block = 96000, 192000
+    payload, iq = _frame(rate, block)
+    tun = np.array([12000.0, 12000.0])
+    cfg = TB.BpskConfig(rate=rate, tuning=12000.0, fuse_mf=True)
+    assert not TB.spectrum_step_merged(cfg, block, tun)
+    st_m = st_s = TB.bpsk_init_batch(cfg, 2, "cpu")
+    payloads = []
+    for b in range(iq.shape[1] // block):
+        x = _cf(iq[:, b * block:(b + 1) * block])
+        spec, out_m, st_m = TB.bpsk_block_batch_spectrum(x, cfg, st_m)
+        want = TB._waterfall_out(*spectrum_waterfall(x, rate // 10), rate)
+        out_s, st_s = TB.bpsk_block_batch(x, cfg, st_s, tun)
+        for name in ("wf", "peak_db", "peak_freq"):
+            assert torch.equal(getattr(spec, name), getattr(want, name)), name
+        for a, b_ in zip(out_m, out_s):
+            assert torch.equal(a, b_)
+        nh = int(out_m.n_hits[0])
+        if nh:
+            res = fec_decode(out_m.windows[0, :nh])
+            payloads += [bytes(p) for ok, p in
+                         zip(res.ok.numpy(), res.payload.numpy()) if ok]
+    assert payloads == [payload.tobytes()]

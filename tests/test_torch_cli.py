@@ -3,6 +3,7 @@ decoded frames and counters of a synthesized capture, in the format of
 ``jsdr-tpu telemetry``."""
 
 import numpy as np
+import pytest
 
 from jsdr_tpu.io.convert import complex_to_s16le
 from jsdr_tpu.io.sources import synth_bpsk_stream
@@ -51,3 +52,75 @@ def test_cli_spectrum_prints_the_reference_peaks(tmp_path, capsys):
         assert gb[:2] == wb[:2] and gb[6:] == wb[6:] == ["4410", "Hz"]
         assert abs(float(gb[3]) - float(wb[3])) <= 0.1
     assert png.stat().st_size > 0 and psd_png.stat().st_size > 0
+
+
+def _capture(tmp_path):
+    rng = np.random.default_rng(21)
+    payload = rng.integers(0, 256, (1, 256), dtype=np.uint8)
+    sig = synth_bpsk_stream(payload, rate=96000, carrier_offset=12000.0,
+                            preamble_bits=200, noise_rms=0.1)
+    path = tmp_path / "frame.raw"
+    path.write_bytes(complex_to_s16le(sig))
+    return path, payload
+
+
+def test_cli_telemetry_checkpoint_resume(tmp_path, capsys):
+    """``--checkpoint`` writes the stream state in the reference's format
+    (it loads in ``jsdr_tpu``'s ``load_state`` with the CLI's meta, and
+    its decisions equal the JAX CLI's checkpoint); ``--resume`` continues
+    from it."""
+    import jax
+    from jsdr_tpu.app.main import main as jax_main
+    from jsdr_tpu.demod.bpsk import BpskConfig, bpsk_init_batch
+    from jsdr_tpu.runtime.state import load_state
+
+    path, _ = _capture(tmp_path)
+    ck, ck_j = tmp_path / "port.npz", tmp_path / "jax.npz"
+    assert main(["telemetry", f"file:{path}", "--tuning", "12000,9000",
+                 "--checkpoint", str(ck), "--device", "cpu"]) == 0
+    assert f"stream state -> {ck}" in capsys.readouterr().out
+    jax_main(["--cpu", "telemetry", f"file:{path}", "--tuning", "12000,9000",
+              "--checkpoint", str(ck_j)])
+    capsys.readouterr()
+    like = bpsk_init_batch(BpskConfig(), 2)
+    meta = {"rate": 96000, "n_demods": 2}
+    got = load_state(ck, like, expect_meta=meta)
+    want = load_state(ck_j, like, expect_meta=meta)
+    for name in ("vco_idx", "ring", "counters", "tu_phase"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name))
+    for a, b in zip(jax.tree.leaves(got.mf_tail), jax.tree.leaves(
+            want.mf_tail)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-3)
+
+    assert main(["telemetry", f"file:{path}", "--tuning", "12000,9000",
+                 "--checkpoint", str(ck), "--resume", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"resumed stream state from {ck}" in out
+    assert "demod1 @ 9000 Hz counters: raw=960000 ds=96000" in out
+
+
+def test_cli_telemetry_stream_blocks_and_device_convert(tmp_path, capsys):
+    """A live ``pipe:`` source runs the Session: ``--blocks`` stops it,
+    ``--device-convert`` uploads raw int16, and frames print in the
+    reference's streaming format. The stream is whole 1 s blocks: a live
+    source's last partial block is not processed (as in the reference)."""
+    path, payload = _capture(tmp_path)
+    data = path.read_bytes()
+    path.write_bytes(data + bytes((-len(data)) % (96000 * 4)))
+    assert main(["telemetry", f"pipe:{path}", "--blocks", "2",
+                 "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip().endswith(
+        "2 blocks streamed, frames=0, dropped=none")
+    ck = tmp_path / "stream.npz"
+    assert main(["telemetry", f"pipe:{path}", "--device-convert",
+                 "--checkpoint", str(ck), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "demod0@12000Hz corr=65 ok=True channel_errors=0" in out
+    row0 = " ".join(f"{v:02x}" for v in payload[0, :16])
+    assert f"    0: {row0}" in out
+    assert out.strip().endswith("5 blocks streamed, frames=1, dropped=none")
+    assert ck.exists()
+    with pytest.raises(NotImplementedError, match="--mesh 2x4"):
+        main(["telemetry", f"pipe:{path}", "--mesh", "2x4", "--device",
+              "cpu"])

@@ -1,11 +1,14 @@
 """The port keeps its own copies of the JAX package's JAX-free host modules
 (``fec.tables``, ``fec.ref_numpy``, ``io.convert``, ``io.sources``,
-``io.flac``, ``display.*``) so that it imports nothing of ``jsdr_tpu``.
+``io.flac``, ``io.framer``, ``io.recorder``, ``io.live``, ``io.fcd``,
+``runtime.pubsub``, ``runtime.log``, ``display.*``) so that it imports
+nothing of ``jsdr_tpu``.
 
 These tests hold that rule and the copies: an AST scan of every module of
 the port and of ``chip_smoke.py`` for imports of ``jax`` or ``jsdr_tpu``,
-and byte equality of the copies' tables and outputs with the
-reference's."""
+byte equality of the copies' tables and outputs with the reference's,
+and, for the verbatim copies, equal code (the syntax tree without the
+module docstring)."""
 
 import ast
 import struct
@@ -18,16 +21,25 @@ import jsdr_tpu.fec.ref_numpy as j_ref
 import jsdr_tpu.fec.tables as j_tables
 import jsdr_tpu.io.convert as j_convert
 import jsdr_tpu.io.flac as j_flac
+import jsdr_tpu.io.framer as j_framer
+import jsdr_tpu.io.live as j_live
+import jsdr_tpu.io.recorder as j_recorder
 import jsdr_tpu.io.sources as j_sources
 import jsdr_tpu_torch.fec.ref_numpy as t_ref
 import jsdr_tpu_torch.fec.tables as t_tables
 import jsdr_tpu_torch.io.convert as t_convert
 import jsdr_tpu_torch.io.flac as t_flac
+import jsdr_tpu_torch.io.framer as t_framer
+import jsdr_tpu_torch.io.live as t_live
+import jsdr_tpu_torch.io.recorder as t_recorder
 import jsdr_tpu_torch.io.sources as t_sources
 
 ROOT = Path(__file__).resolve().parents[1]
 SCANNED = sorted((ROOT / "jsdr_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# copied without a change to their code
+VERBATIM = ("io/framer.py", "io/recorder.py", "io/live.py", "io/fcd.py",
+            "runtime/pubsub.py", "runtime/log.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -159,3 +171,58 @@ def test_read_wav_and_sources_equal_the_reference(tmp_path):
     samples, rate, bps = t_flac.read_flac(flac)
     np.testing.assert_array_equal(samples, s16.reshape(-1, 2))
     assert (rate, bps) == (48000, 16)
+
+
+def _code(path: Path) -> str:
+    """The module's syntax tree without its docstring."""
+    tree = ast.parse(path.read_text(), str(path))
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copy_equals_the_reference(rel):
+    assert (ROOT / "jsdr_tpu_torch" / rel).is_file()
+    assert _code(ROOT / "jsdr_tpu_torch" / rel) == _code(ROOT / "jsdr_tpu"
+                                                          / rel)
+    for new in ("runtime/executor.py", "runtime/state.py",
+                "io/convert_device.py"):
+        assert ROOT / "jsdr_tpu_torch" / new in SCANNED
+
+
+def test_framer_recorder_and_live_sources_equal_the_reference(tmp_path):
+    """The copies' outputs byte-equal the reference's: framed blocks from
+    ragged chunks (complex and raw), recorded files, a pipe: stream
+    (converted and raw) and paced replay on a fake clock."""
+    rng = np.random.default_rng(11)
+    raw = rng.integers(-32768, 32768, 2 * 5000, dtype=np.int16)
+    iq = t_convert.s16le_to_complex(raw)
+    cuts = [0, 700, 701, 2900, 5000]
+    outs = []
+    for fr, rec, live in ((j_framer, j_recorder, j_live),
+                          (t_framer, t_recorder, t_live)):
+        got = []
+        for framer, data, k in ((fr.BlockFramer(960), iq, 1),
+                                (fr.RawBlockFramer(960), raw, 2)):
+            for a, b in zip(cuts, cuts[1:]):
+                got += [x.tobytes() for x in framer.push(data[k * a:k * b])]
+            got.append(framer.flush(pad=True).tobytes())
+        path = tmp_path / f"{fr.__name__}.raw"
+        with rec.RawRecorder(path) as r:
+            r.write_iq(iq[:100])
+            r.write_raw(raw[:64].tobytes())
+        got.append(path.read_bytes())
+        cap = tmp_path / "cap.raw"
+        cap.write_bytes(raw.tobytes())
+        for is_raw in (False, True):
+            src = live.StreamSource(f"pipe:{cap}", chunk_samples=1500,
+                                    i_corr=5, q_corr=-3, raw=is_raw)
+            got += [x.tobytes() for x in src]
+        now, slept = [0.0], []
+        paced = live.PacedSource(
+            [raw[:2 * 480], iq[:960], iq[:96]], rate=9600,
+            clock=lambda: now[0], sleep=slept.append)
+        got += [x.tobytes() for x in paced] + [repr(slept)]
+        outs.append(got)
+    assert outs[0] == outs[1]
