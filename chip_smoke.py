@@ -46,10 +46,14 @@ MAIN_SHAPE = (128, 96000)           # streams x samples per 1 s block
 # last tile (9544 outputs = 74 tiles of 128 + 72)
 MIX_CASES = ((128, 96000, 96000), (64, 192000, 192000), (13, 95440, 96000))
 # kernels 3 and 4: (streams, samples, rate): the flagship shape (4.8 s
-# blocks at 96 k, bench.py's), 192 k, a ragged stream count, and the 1 s
-# block that takes the staged branch
+# blocks at 96 k, bench.py's), 192 k, a ragged stream count, the 1 s
+# block that takes the staged branch, and 134.4 k (n1 = 105 = 3*5*7: the
+# FFT's generic radix)
 SPEC_CASES = ((128, 460800, 96000), (256, 460800, 192000), (13, 96000, 96000),
-              (128, 96000, 96000))
+              (128, 96000, 96000), (64, 134400, 134400))
+# kernel 4 alone at the card's largest n1 (CUDA_MAX_N1 = 225: n = 28800 at
+# 288 kS/s): streams, each 1 s
+K4_STREAMS = 32
 FLAGSHIP_SHAPE = (128, 460800)      # streams x samples per 4.8 s block
 # kernel 5: (rows, bins, width): the Session's 1 s block of 0.1 s spectra
 # at 96 k and 192 k, 128 streams' 1 s of blocks, and an odd width
@@ -86,9 +90,10 @@ def spec_work(s: int, t_len: int, n: int, q: int) -> tuple[float, float]:
     """(flops, bytes) of the waterfall spectrum over [S, T]: per block of
     n, the window (2n), a factored FFT's 5*n*log2(n) and the power, scale
     and dB (6n); the two input planes read and wf/peaks written once (the
-    window is read too). The kernels compute the direct two-stage DFT,
-    (n1^2*128 + n1*128^2) complex MACs per block, ~22x the FFT's count at
-    n = 9600: that is their cost, not the least the work needs."""
+    window is read too). The kernels compute a factored FFT
+    (csrc/spectrum_body.cuh): radix 2, 3, 4 and 5 passes down the columns
+    and a 128-point FFT along the rows, near this count (a generic radix
+    above 5, which no FUNcube rate has, costs more)."""
     nblk = t_len // n
     flops = s * nblk * (5.0 * n * np.log2(n) + 8.0 * n)
     nbytes = (8.0 * s * t_len + 4.0 * s * nblk * (n // 128 // q) * 128
@@ -549,168 +554,224 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
     return launches
 
 
-def phase_spectrum_kernels(torch, np, dev, tag):
-    """Phase 7: kernels 3 (merged spectrum + front end) and 4 (waterfall
-    spectrum) against their plain versions, against each other (bit for
-    bit) and kernel 3's front end against kernel 1 (bit for bit), on tones
-    over a noise floor; kernel 4's full PSD (q = 1, through
-    ``spectrum_wide`` as the CLI calls it) against its plain version (see
-    :func:`psd_errors`); times of both kernels, their plain versions, and
-    torch.fft.fft over the same windowed blocks (the library call for the
-    DFT part). Returns the kernels' rows at the main paths' shapes."""
-    from jsdr_tpu_torch.demod.bpsk import (DS_FILTER, HOWARD_FUDGE_FACTOR,
-                                           NU_SCALE, _nco_pattern,
-                                           tunings_to_nu)
+def spec_inputs(torch, np, dev, gen, s: int, t_len: int, rate: int):
+    """Three inputs [S, T] for the spectrum kernels at ``rate`` (n = rate /
+    10, one bin = 10 Hz): a tone per stream at its own whole bin, 1.5 over
+    a 0.3 noise floor; the tones' Hz [S] (float64)."""
     from jsdr_tpu_torch.ops.cplx import CF
-    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+
+    n = rate // 10
+    tone_hz = torch.as_tensor(10.0 * ((np.arange(s) * 397) % (n // 2))
+                              - rate / 4, dtype=torch.float64, device=dev)
+    ang = (2 * np.pi / rate) * tone_hz[:, None] * torch.arange(
+        t_len, dtype=torch.float64, device=dev)[None, :]
+
+    def rand():
+        return 0.3 * torch.randn((s, t_len), generator=gen, device=dev)
+
+    return [CF((rand() + 1.5 * torch.cos(ang)).float(),
+               (rand() + 1.5 * torch.sin(ang)).float())
+            for _ in range(3)], tone_hz
+
+
+def check_k4(torch, dev, x, n: int, rate: int, tone_hz, label: str):
+    """Kernel 4 against its plain version on ``x``: the waterfall (q =
+    wf_group_for(n)) within 2e-3 dB, peaks within 1e-3 dB and argmax
+    equal; the full PSD (q = 1, through ``spectrum_wide`` as the CLI runs
+    it) within 2e-3 dB at or above the floor and PSD_AMP_TOL of the RMS
+    amplitude (see :func:`psd_errors`), its peak within 1e-3 dB and at the
+    tone. Both against a float64 FFT of the same windowed blocks (a
+    reading). Returns (k4 = (wf, mx, idx), wf error, full-PSD errors,
+    float64 errors of the kernel and of the plain version)."""
     from jsdr_tpu_torch.ops.spectrum import spectrum_wide
-    from jsdr_tpu_torch.ops.spectrum_front import (spectrum_front_fused,
-                                                   spectrum_front_ref)
     from jsdr_tpu_torch.ops.spectrum_fused import (spectrum_waterfall,
                                                    spectrum_wf_ref,
                                                    wf_group_for)
     from jsdr_tpu_torch.ops.windows import hamming
 
+    s = x.shape[0]
+    k4 = spectrum_waterfall(x, n)
+    p4 = spectrum_wf_ref(x, n, True, wf_group_for(n))
+    k4_err = float((k4[0] - p4[0]).abs().max())
+    need(k4_err <= 2e-3 and float((k4[1] - p4[1]).abs().max()) <= 1e-3
+         and torch.equal(k4[2], p4[2]),
+         f"spectrum_waterfall {label}: differs from plain ({k4_err} dB)")
+    del p4
+    full = spectrum_wide(x, n, rate, natural=False)
+    pf = spectrum_wf_ref(x, n, True, 1)
+    errs = psd_errors(torch, full.psd, pf[0])
+    need(errs[0] <= 2e-3 and errs[1] <= PSD_AMP_TOL,
+         f"spectrum_wide {label}: full PSD |kernel-plain| {errs[0]} dB "
+         f"at or above the floor (limit 2e-3), amplitude {errs[1]} of "
+         f"the block's RMS (limit {PSD_AMP_TOL})")
+    need(float((full.peak_db.T - pf[1]).abs().max()) <= 1e-3
+         and torch.equal(full.peak_freq, tone_hz.round().int()[:, None]
+                         .expand_as(full.peak_freq)),
+         f"spectrum_wide {label}: peaks differ from plain or the tone")
+    z = torch.complex(x.re.double(), x.im.double()).view(s, -1, n)
+    truth = 10.0 * torch.log10(torch.clamp_min(torch.fft.fft(
+        z * hamming(n, device=dev).double()).abs().square()
+        * (2.0 / n) ** 2, 1e-30))
+    truth = truth.view(s, -1, 128, n // 128).permute(1, 0, 3, 2)
+    vs64 = (psd_errors(torch, full.psd, truth),
+            psd_errors(torch, pf[0], truth))
+    return k4, k4_err, errs, vs64
+
+
+def time_spectrum(torch, dev, inputs, n: int, q: int, with_k3: bool):
+    """Device ms of kernel 4, its plain version, torch.fft.fft over the
+    same windowed blocks (the library call for the DFT part) and, with
+    ``with_k3``, kernel 3 and its plain version (None without)."""
+    from jsdr_tpu_torch.ops.spectrum_front import (spectrum_front_fused,
+                                                   spectrum_front_ref)
+    from jsdr_tpu_torch.ops.spectrum_fused import (spectrum_waterfall,
+                                                   spectrum_wf_ref)
+    from jsdr_tpu_torch.ops.windows import hamming
+
+    ms3 = plain3 = None
+    if with_k3:
+        ms3 = time_ms(torch, spectrum_front_fused, inputs, 10)
+        plain3 = time_ms(torch, spectrum_front_ref, inputs, 3)
+    xs = [(i[0], n) for i in inputs]
+    ms4 = time_ms(torch, lambda x_, n_: spectrum_waterfall(x_, n_), xs, 10)
+    plain4 = time_ms(torch, lambda x_, n_: spectrum_wf_ref(x_, n_, True, q),
+                     xs, 3)
+    win = hamming(n, device=dev)
+    s = inputs[0][0].shape[0]
+    blocks = [(torch.complex(x.re.view(s, -1, n) * win,
+                             x.im.view(s, -1, n) * win),) for x, _ in xs]
+    fft_ms = time_ms(torch, lambda z: torch.fft.fft(z).real, blocks, 10)
+    return ms3, plain3, ms4, plain4, fft_ms
+
+
+def phase_spectrum_kernels(torch, np, dev, tag):
+    """Phase 7: kernels 3 (merged spectrum + front end) and 4 (waterfall
+    spectrum) against their plain versions, against each other (bit for
+    bit) and kernel 3's front end against kernel 1 (bit for bit), on tones
+    over a noise floor (SPEC_CASES); kernel 4 alone at the card's largest
+    n1 (K4_STREAMS x 1 s at n1 = CUDA_MAX_N1); see :func:`check_k4`. The merged kernel's static shared
+    memory must be what ``CUDA_MAX_N1`` was derived from. Times of both
+    kernels, their plain versions, and torch.fft.fft over the same
+    windowed blocks. Returns the kernels' rows at the main paths' shapes."""
+    from jsdr_tpu_torch.demod.bpsk import (DS_FILTER, HOWARD_FUDGE_FACTOR,
+                                           NU_SCALE, _nco_pattern,
+                                           tunings_to_nu)
+    from jsdr_tpu_torch.ops.cplx import CF
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.spectrum_front import (spectrum_front_fused,
+                                                   spectrum_front_ref,
+                                                   static_smem_bytes)
+    from jsdr_tpu_torch.ops.spectrum_fused import (CUDA_MAX_N1, STATIC_SMEM,
+                                                   wf_group_for)
+
+    static = static_smem_bytes()
+    need(static <= STATIC_SMEM, f"spec_front_kernel has {static} bytes of "
+         f"static shared memory; CUDA_MAX_N1 = {CUDA_MAX_N1} assumed "
+         f"{STATIC_SMEM}")
+    print(f"spectrum kernels: {static} bytes of static shared memory in the "
+          f"merged kernel (<= {STATIC_SMEM}); CUDA_MAX_N1 = {CUDA_MAX_N1}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
     worst = {"k3": 0.0, "k4": 0.0}
     rows = {}
-    for s, t_len, rate in SPEC_CASES:
+    k4_rate = CUDA_MAX_N1 * 1280                       # n = rate / 10
+    cases = [(c, True) for c in SPEC_CASES] + [
+        ((K4_STREAMS, k4_rate, k4_rate), False)]
+    for (s, t_len, rate), with_k3 in cases:
         n, m = rate // 10, rate // 9600
         q = wf_group_for(n)
-        step = 750 if rate == 96000 else 1500
-        tun = step * (8 + np.arange(s) % 21)
+        tun = (rate // 128) * (8 + np.arange(s) % 21)   # 128-periodic mixes
         tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64,
                              device=dev)
         nu0 = torch.randint(0, NU_SCALE * rate, (s,), generator=gen,
                             device=dev).float()
         cos_pat, sin_pat = _nco_pattern(nu0, tu, rate)
-        # a tone per stream at its own frequency (a whole bin) over a floor
-        tone_hz = torch.as_tensor(10.0 * ((np.arange(s) * 397) % (n // 2))
-                                  - rate / 4, dtype=torch.float64,
-                                  device=dev)
-        ang = (2 * np.pi / rate) * tone_hz[:, None] * torch.arange(
-            t_len, dtype=torch.float64, device=dev)[None, :]
-
-        def rand(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-
-        inputs = []
-        for _ in range(3):
-            x = CF((0.3 * rand(s, t_len) + 1.5 * torch.cos(ang)).float(),
-                   (0.3 * rand(s, t_len) + 1.5 * torch.sin(ang)).float())
-            inputs.append((x, n, cos_pat, sin_pat, taps, m,
-                           CF(rand(s, 26), rand(s, 26)),
-                           HOWARD_FUDGE_FACTOR))
-        del ang
+        xs, tone_hz = spec_inputs(torch, np, dev, gen, s, t_len, rate)
+        inputs = [(x, n, cos_pat, sin_pat, taps, m,
+                   CF(torch.randn((s, 26), generator=gen, device=dev),
+                      torch.randn((s, 26), generator=gen, device=dev)),
+                   HOWARD_FUDGE_FACTOR) for x in xs]
         x, tail = inputs[0][0], inputs[0][6]
-        k3 = spectrum_front_fused(*inputs[0])
-        p3 = spectrum_front_ref(*inputs[0])
-        k4 = spectrum_waterfall(x, n)
-        k1 = mix_decimate(x, cos_pat, sin_pat, taps, m, tail,
-                          HOWARD_FUDGE_FACTOR)
-        torch.cuda.synchronize()
-        label = f"S={s} T={t_len} rate={rate} (n={n}, q={q}, m={m})"
-        wf_err = float((k3[0] - p3[0]).abs().max())
-        mx_err = float((k3[1] - p3[1]).abs().max())
-        need(wf_err <= 2e-3, f"spectrum_front_fused {label}: wf "
-             f"|kernel-plain| {wf_err} dB > 2e-3")
-        need(mx_err <= 1e-3, f"spectrum_front_fused {label}: peak "
-             f"|kernel-plain| {mx_err} dB > 1e-3")
-        need(torch.equal(k3[2], p3[2]),
-             f"spectrum_front_fused {label}: argmax differs from plain")
-        scale = max(float(p3[3].re.abs().max()), float(p3[3].im.abs().max()))
-        ds_err = max(float((k3[3].re - p3[3].re).abs().max()),
-                     float((k3[3].im - p3[3].im).abs().max()))
-        need(ds_err <= 1e-5 * scale, f"spectrum_front_fused {label}: ds "
-             f"|kernel-plain| {ds_err} > 1e-5 * {scale}")
-        need(torch.equal(k3[4].re, p3[4].re) and torch.equal(k3[4].im,
-                                                             p3[4].im),
-             f"spectrum_front_fused {label}: tails differ from plain")
-        need(all(torch.equal(a, b) for a, b in zip(k3[:3], k4)),
-             f"{label}: kernel 3's wf/mx/idx are not kernel 4's")
-        need(torch.equal(k3[3].re, k1[0].re) and torch.equal(k3[3].im,
-                                                             k1[0].im)
-             and torch.equal(k3[4].re, k1[1].re)
-             and torch.equal(k3[4].im, k1[1].im),
-             f"{label}: kernel 3's ds/tail are not kernel 1's")
-        p4 = spectrum_wf_ref(x, n, True, q)
-        k4_err = float((k4[0] - p4[0]).abs().max())
-        need(k4_err <= 2e-3 and float((k4[1] - p4[1]).abs().max()) <= 1e-3
-             and torch.equal(k4[2], p4[2]),
-             f"spectrum_waterfall {label}: differs from plain ({k4_err} dB)")
-        del p4
-        # the full PSD (q = 1), as spectrum_wide and the CLI run kernel 4
-        full = spectrum_wide(x, n, rate, natural=False)
-        pf = spectrum_wf_ref(x, n, True, 1)
-        db_above, amp_err, db_any = psd_errors(torch, full.psd, pf[0])
-        need(db_above <= 2e-3 and amp_err <= PSD_AMP_TOL,
-             f"spectrum_wide {label}: full PSD |kernel-plain| {db_above} dB "
-             f"at or above the floor (limit 2e-3), amplitude {amp_err} of "
-             f"the block's RMS (limit {PSD_AMP_TOL})")
-        need(float((full.peak_db.T - pf[1]).abs().max()) <= 1e-3
-             and torch.equal(full.peak_freq, tone_hz.round().int()[:, None]
-                             .expand_as(full.peak_freq)),
-             f"spectrum_wide {label}: peaks differ from plain or the tone")
-        # both against a float64 FFT of the same windowed blocks (a reading)
-        z = torch.complex(x.re.double(), x.im.double()).view(s, -1, n)
-        truth = 10.0 * torch.log10(torch.clamp_min(torch.fft.fft(
-            z * hamming(n, device=dev).double()).abs().square()
-            * (2.0 / n) ** 2, 1e-30))
-        truth = truth.view(s, -1, 128, n // 128).permute(1, 0, 3, 2)
-        vs64 = (psd_errors(torch, full.psd, truth),
-                psd_errors(torch, pf[0], truth))
-        del full, pf, z, truth
+        label = f"S={s} T={t_len} rate={rate} (n={n}, n1={n // 128}, q={q}"
+        label += f", m={m})" if with_k3 else ", kernel 4 alone)"
+        k4, k4_err, (db_above, amp_err, db_any), vs64 = check_k4(
+            torch, dev, x, n, rate, tone_hz, label)
         # the argmax is the tone: natural bin of idx at the tone's bin
         n1 = n // 128
-        k_nat = n1 * (k3[2].long() % 128) + k3[2].long() // 128
+        k_nat = n1 * (k4[2].long() % 128) + k4[2].long() // 128
         want_bin = (torch.round(tone_hz * n / rate).long() % n)[None, :]
         need(torch.equal(k_nat, want_bin.expand_as(k_nat)),
              f"{label}: the peak is not at the tone")
-        worst["k3"] = max(worst["k3"], wf_err)
+        line = (f"full PSD (q=1) |k-p| {db_above:.3e} dB at or above the "
+                f"floor, {db_any:.3e} dB anywhere, amplitude {amp_err:.3e} "
+                f"of the block's RMS; against float64, kernel "
+                f"{vs64[0][0]:.3e}/{vs64[0][2]:.3e} dB, {vs64[0][1]:.3e} "
+                f"amp., plain {vs64[1][0]:.3e}/{vs64[1][2]:.3e} dB, "
+                f"{vs64[1][1]:.3e} amp.")
         worst["k4"] = max(worst["k4"], k4_err, db_any)
-
-        ms3 = time_ms(torch, spectrum_front_fused, inputs, 10)
-        plain3 = time_ms(torch, spectrum_front_ref, inputs, 3)
-        ms4 = time_ms(torch, lambda x_, n_: spectrum_waterfall(x_, n_),
-                      [(i[0], n) for i in inputs], 10)
-        plain4 = time_ms(torch, lambda x_, n_: spectrum_wf_ref(x_, n_, True,
-                                                               q),
-                         [(i[0], n) for i in inputs], 3)
-        win = hamming(n, device=dev)
-        blocks = [(torch.complex(i[0].re.view(s, -1, n) * win,
-                                 i[0].im.view(s, -1, n) * win),)
-                  for i in inputs]
-        fft_ms = time_ms(torch, lambda z: torch.fft.fft(z).real, blocks, 10)
-        del blocks
+        if with_k3:
+            k3 = spectrum_front_fused(*inputs[0])
+            p3 = spectrum_front_ref(*inputs[0])
+            k1 = mix_decimate(x, cos_pat, sin_pat, taps, m, tail,
+                              HOWARD_FUDGE_FACTOR)
+            torch.cuda.synchronize()
+            wf_err = float((k3[0] - p3[0]).abs().max())
+            mx_err = float((k3[1] - p3[1]).abs().max())
+            need(wf_err <= 2e-3, f"spectrum_front_fused {label}: wf "
+                 f"|kernel-plain| {wf_err} dB > 2e-3")
+            need(mx_err <= 1e-3, f"spectrum_front_fused {label}: peak "
+                 f"|kernel-plain| {mx_err} dB > 1e-3")
+            need(torch.equal(k3[2], p3[2]),
+                 f"spectrum_front_fused {label}: argmax differs from plain")
+            scale = max(float(p3[3].re.abs().max()),
+                        float(p3[3].im.abs().max()))
+            ds_err = max(float((k3[3].re - p3[3].re).abs().max()),
+                         float((k3[3].im - p3[3].im).abs().max()))
+            need(ds_err <= 1e-5 * scale, f"spectrum_front_fused {label}: ds "
+                 f"|kernel-plain| {ds_err} > 1e-5 * {scale}")
+            need(torch.equal(k3[4].re, p3[4].re)
+                 and torch.equal(k3[4].im, p3[4].im),
+                 f"spectrum_front_fused {label}: tails differ from plain")
+            need(all(torch.equal(a, b) for a, b in zip(k3[:3], k4)),
+                 f"{label}: kernel 3's wf/mx/idx are not kernel 4's")
+            need(torch.equal(k3[3].re, k1[0].re)
+                 and torch.equal(k3[3].im, k1[0].im)
+                 and torch.equal(k3[4].re, k1[1].re)
+                 and torch.equal(k3[4].im, k1[1].im),
+                 f"{label}: kernel 3's ds/tail are not kernel 1's")
+            worst["k3"] = max(worst["k3"], wf_err)
+            line = (f"wf |k-p| {wf_err:.3e} dB, peak {mx_err:.3e} dB, argmax "
+                    f"equal (the tones), ds |k-p| {ds_err:.3e} (<= 1e-5 x "
+                    f"{scale:.3e}); kernel 3 == kernel 4 (wf, mx, idx) and "
+                    f"== kernel 1 (ds, tail), bit for bit; " + line)
+            del k3, p3, k1
+        else:
+            line = (f"wf |k-p| {k4_err:.3e} dB, peak and argmax equal (the "
+                    f"tones); " + line)
+        print(f"{tag} spectrum kernels {label}: {line}")
+        del k4
+        ms3, plain3, ms4, plain4, fft_ms = time_spectrum(
+            torch, dev, inputs, n, q, with_k3)
         f4, b4 = spec_work(s, t_len, n, q)
         f1, b1 = front_work(s, t_len, m)
         bound4 = bound(f4, b4)
         bound3 = bound(f4 + f1, b4 + b1 - 8.0 * s * t_len)
-        print(f"{tag} spectrum kernels {label}: wf |k-p| {wf_err:.3e} dB, "
-              f"peak {mx_err:.3e} dB, argmax equal (the tones), ds |k-p| "
-              f"{ds_err:.3e} (<= 1e-5 x {scale:.3e}); kernel 3 == kernel 4 "
-              f"(wf, mx, idx) and == kernel 1 (ds, tail), bit for bit; full "
-              f"PSD (q=1) |k-p| {db_above:.3e} dB at or above the floor, "
-              f"{db_any:.3e} dB anywhere, amplitude {amp_err:.3e} of the "
-              f"block's RMS; against float64, kernel "
-              f"{vs64[0][0]:.3e}/{vs64[0][2]:.3e} dB, {vs64[0][1]:.3e} amp., "
-              f"plain {vs64[1][0]:.3e}/{vs64[1][2]:.3e} dB, "
-              f"{vs64[1][1]:.3e} amp.")
-        print(f"{tag}   kernel 3 spectrum_front_fused {ms3:.4f} ms (plain "
-              f"{plain3:.4f}, bound {bound3[0]:.4f} by {bound3[1]}); kernel 4"
-              f" spectrum_waterfall {ms4:.4f} ms (plain {plain4:.4f}, bound "
-              f"{bound4[0]:.4f} by {bound4[1]}); torch.fft.fft over the "
-              f"windowed blocks {fft_ms:.4f} ms; direct DFT "
-              f"{f4 / ms4 / 1e9:.1f} TFLOP/s in kernel 4")
+        k3_text = (f"kernel 3 spectrum_front_fused {ms3:.4f} ms (plain "
+                   f"{plain3:.4f}, bound {bound3[0]:.4f} by {bound3[1]}); "
+                   if with_k3 else "")
+        print(f"{tag}   {k3_text}kernel 4 spectrum_waterfall {ms4:.4f} ms "
+              f"(plain {plain4:.4f}, bound {bound4[0]:.4f} by {bound4[1]}); "
+              f"torch.fft.fft over the windowed blocks {fft_ms:.4f} ms; "
+              f"{f4 / ms4 / 1e9:.2f} TFLOP/s in kernel 4 at the FFT's "
+              f"5 n log2 n count")
         if (s, t_len) == FLAGSHIP_SHAPE and rate == 96000:
             rows["k3"] = dict(ms=ms3, plain_ms=plain3, bound_ms=bound3[0],
                               bound_by=bound3[1], library_ms=fft_ms)
         if (s, t_len) == MAIN_SHAPE and rate == 96000:
             rows["k4"] = dict(ms=ms4, plain_ms=plain4, bound_ms=bound4[0],
                               bound_by=bound4[1], library_ms=fft_ms)
-        del inputs, x, tail, k3, p3, k4, k1
+        del inputs, xs, x, tail
         torch.cuda.empty_cache()
     rows["k3"]["max_abs_err"] = worst["k3"]
     rows["k4"]["max_abs_err"] = worst["k4"]

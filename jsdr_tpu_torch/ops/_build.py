@@ -38,13 +38,16 @@ _SIGNATURES = {
     # e_ema', peak', new_peak', e_out', last_iq', n_streams, n_groups,
     # s1, a1, s2, a2, gate, stream
     "jsdr_timing_recover": [_P] * 14 + [_I, _I, _F, _F, _F, _F, _F, _P],
-    # xr, xi, win, w1r, w1i, twr, twi, w2r, w2i, wf, mx, idx, n_streams,
-    # t_len, n1, q, cf, stream
-    "jsdr_spectrum_wf": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
-    # xr, xi, win, w1r, w1i, twr, twi, w2r, w2i, cos, sin, taps, tail_r,
-    # tail_i, wf, mx, idx, yr, yi, ntail_r, ntail_i, n_streams, t_len, n1,
-    # q, cf, m, gain, stream
-    "jsdr_spec_front": [_P] * 21 + [_I, _I, _I, _I, _F, _I, _F, _P],
+    # xr, xi, win, the plan (passes, ptwr, ptwi, perm, gwr, gwi, s2r, s2i,
+    # k2map), twr, twi, wf, mx, idx, n_streams, t_len, n1, q, n_pass, rg,
+    # cf, stream
+    "jsdr_spectrum_wf": [_P] * 17 + [_I] * 6 + [_F, _P],
+    # xr, xi, win, the plan, twr, twi, cos, sin, taps, tail_r, tail_i, wf,
+    # mx, idx, yr, yi, ntail_r, ntail_i, n_streams, t_len, n1, q, n_pass,
+    # rg, cf, m, gain, stream
+    "jsdr_spec_front": [_P] * 26 + [_I] * 6 + [_F, _I, _F, _P],
+    # bytes (int*)
+    "jsdr_spec_front_static_smem": [_P],
     # re, im, db, line, n_rows, n, width, cf, stream
     "jsdr_psd_waterfall": [_P] * 4 + [_I, _I, _I, _F, _P],
     # xr, xi, cos, sin, taps, tail_r, tail_i, vco_cos, vco_sin, mf_taps,

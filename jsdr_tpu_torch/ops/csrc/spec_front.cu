@@ -8,12 +8,14 @@
 // the new 26-sample mixed-domain tail), and equal them bit for bit: the
 // spectrum is spectrum_body.cuh, the mix and FIR are fir_mix.cuh.
 //
-// What bounds it on this card: the spectrum's arithmetic (see
-// spectrum_wf.cu: ~96 GFLOP at 128 x 460800 samples, 1.43 ms at
-// 67 TFLOP/s fp32). The front end adds 54 FMAs per output (960 outputs
-// per 9600-sample block) and 8 bytes written per output; the merge saves
-// the second read of the input that the staged pair makes (8 bytes per
-// sample, ~0.47 GB at that shape, ~0.14 ms at 3.35 TB/s).
+// What bounds it on this card: device memory. At 128 x 460800 samples it
+// reads 0.47 GB (8 bytes a sample) and writes 0.09 GB (lines, ds), ~0.17
+// ms at 3.35 TB/s; the factored FFT of spectrum_body.cuh with the window
+// and power (~0.7 MFLOP per 9600-sample block) and the front end's 54
+// FMAs per output (960 outputs per block) are ~5.1 GFLOP, ~0.08 ms at 67
+// TFLOP/s fp32. Within the CTA the shared-memory passes over the block
+// come on top of the read. The merge saves the second read of the input
+// that the staged pair makes (~0.14 ms at that shape).
 //
 // Design: one CTA per (FFT block, stream), n = 960 * m samples. The CTA
 // copies its block's raw samples into shared memory, plus the 26 mixed
@@ -21,10 +23,12 @@
 // for block 0). It forms the block's n/m decimated outputs from shared
 // memory, mixing each sample as the FIR meets it (pattern phase t % 128,
 // block-relative as in mix_decimate.cu; n is a multiple of 128), then
-// windows the block in place and runs the spectrum body. A second small
-// launch writes the new tail, as mix_decimate.cu does. The TPU kernel's
-// grid geometry (sf_geometry: 4 or 2 FFT blocks and 3 FIR sub-chunks per
-// grid step, sized for VMEM) is not needed: each CTA owns one FFT block.
+// windows the block in place and runs the spectrum body (a factored FFT
+// in shared memory, planned by jsdr_tpu_torch/ops/fft_plan.py). A second
+// small launch writes the new tail, as mix_decimate.cu does. The TPU
+// kernel's grid geometry (sf_geometry: 4 or 2 FFT blocks and 3 FIR
+// sub-chunks per grid step, sized for VMEM) is not needed: each CTA owns
+// one FFT block.
 #include <cuda_runtime.h>
 
 #include "fir_mix.cuh"
@@ -39,7 +43,7 @@ using jsdr_spec::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                  const float* __restrict__ win, jsdr_spec::Tables tb,
+                  const float* __restrict__ win, jsdr_spec::Plan pl,
                   const float* __restrict__ cos_pat,
                   const float* __restrict__ sin_pat,
                   const float* __restrict__ taps,
@@ -56,7 +60,6 @@ spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float* ar = reinterpret_cast<float*>(smem4);
   const int n = n1 * jsdr_spec::kN2;
   float* ai = ar + n;
-  float* buf = ai + n;
   const int b = blockIdx.x;
   const int s = blockIdx.y;
   const long long row = static_cast<long long>(s) * t_len;
@@ -113,24 +116,22 @@ spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
   __syncthreads();
   const long long line = static_cast<long long>(b) * n_streams + s;
-  jsdr_spec::spectrum_body(ar, ai, buf, n1, q, cf, tb,
+  jsdr_spec::spectrum_body(ar, ai, n1, q, cf, pl,
                            wf + line * (n1 / q) * jsdr_spec::kN2, mx + line,
                            idx + line);
 }
 
 }  // namespace
 
-extern "C" int jsdr_spec_front(const float* xr, const float* xi,
-                               const float* win, const float* w1r,
-                               const float* w1i, const float* twr,
-                               const float* twi, const float* w2r,
-                               const float* w2i, const float* cos_pat,
-                               const float* sin_pat, const float* taps,
-                               const float* tail_r, const float* tail_i,
-                               float* wf, float* mx, int* idx, float* yr,
-                               float* yi, float* ntail_r, float* ntail_i,
-                               int n_streams, int t_len, int n1, int q,
-                               float cf, int m, float gain, void* stream) {
+extern "C" int jsdr_spec_front(
+    const float* xr, const float* xi, const float* win, const int* passes,
+    const float* ptwr, const float* ptwi, const int* perm, const float* gwr,
+    const float* gwi, const float* s2r, const float* s2i, const int* k2map,
+    const float* twr, const float* twi, const float* cos_pat,
+    const float* sin_pat, const float* taps, const float* tail_r,
+    const float* tail_i, float* wf, float* mx, int* idx, float* yr, float* yi,
+    float* ntail_r, float* ntail_i, int n_streams, int t_len, int n1, int q,
+    int n_pass, int rg, float cf, int m, float gain, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = t_len / (n1 * jsdr_spec::kN2);
   if (nblk > 0 && n_streams > 0) {
@@ -139,9 +140,10 @@ extern "C" int jsdr_spec_front(const float* xr, const float* xi,
         spec_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    const jsdr_spec::Tables tb{w1r, w1i, twr, twi, w2r, w2i};
+    const jsdr_spec::Plan pl{passes, ptwr, ptwi, perm, gwr, gwi, s2r,
+                             s2i,    k2map, twr,  twi,  n_pass, rg};
     spec_front_kernel<<<dim3(nblk, n_streams), kThreads, smem, st>>>(
-        xr, xi, win, tb, cos_pat, sin_pat, taps, tail_r, tail_i, wf, mx, idx,
+        xr, xi, win, pl, cos_pat, sin_pat, taps, tail_r, tail_i, wf, mx, idx,
         yr, yi, n_streams, t_len, n1, q, cf, m, gain);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -149,4 +151,15 @@ extern "C" int jsdr_spec_front(const float* xr, const float* xi,
   return static_cast<int>(jsdr_fir::launch_mix_tail(
       xr, xi, cos_pat, sin_pat, tail_r, tail_i, ntail_r, ntail_i, n_streams,
       t_len, st));
+}
+
+// The static shared memory of the merged kernel (its taps, pattern and halo
+// arrays and the body's peak reduction), which the dynamic block shares the
+// CTA's 232,448 bytes with: jsdr_tpu_torch/ops/spectrum_fused.py derives the
+// card's largest n1 from it.
+extern "C" int jsdr_spec_front_static_smem(int* bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, spec_front_kernel);
+  if (e == cudaSuccess) *bytes = static_cast<int>(a.sharedSizeBytes);
+  return static_cast<int>(e);
 }

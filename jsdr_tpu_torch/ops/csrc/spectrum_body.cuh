@@ -7,38 +7,50 @@
 //
 // Contract, for the windowed block a[t] (t < n = n1 * 128), with
 // A[j, c] = a[128*j + c]:
-//   stage 1   B[k1, c]  = sum_j W1[k1, j] * A[j, c]          (n1-point DFT)
+//   stage 1   B[k1, c]  = sum_j W_n1^(j*k1) * A[j, c]          (n1-point DFT)
 //   twiddle   C[k1, c]  = B[k1, c] * TW[k1, c]
-//   stage 2   D[k1, k2] = sum_c C[k1, c] * W2[k2, c]           (128-point DFT)
+//   stage 2   D[k1, k2] = sum_c C[k1, c] * W_128^(c*k2)        (128-point DFT)
 //   power     P[k1, k2] = (Dr^2 + Di^2) * (2/n)^2, natural bin n1*k2 + k1
 //   wf[g, k2] = max_{k1 in [g*q, (g+1)*q)} 10*log10(max(P[k1, k2], 1e-30))
 //   peak: the FIRST maximum of P in the permuted flat order k1*128 + k2
 //   (ties go to the smaller flat index), mx = 10*log10(max(P_max, 1e-30)).
-// W1 = _dft_mats(n1, -1), TW = _twiddles(n1, 128, -1), W2 = _dft_mats(128,
-// -1): the f32 host tables of jsdr_tpu_torch/ops/mxu_fft.py, in device
-// memory. Both DFT matrices are symmetric, so W1[j * n1 + k1] and
-// W2[c * 128 + k2] read them with consecutive lanes on consecutive
-// addresses. The waterfall max is taken over dB values (log, then max), so
-// the q-decimated lines equal the full PSD (q = 1) max-decimated, exactly.
+// TW = _twiddles(n1, 128, -1) (jsdr_tpu_torch/ops/mxu_fft.py). Each row's
+// power is computed the same way whatever q is, and the waterfall max is
+// taken over dB values (log, then max), so the q-decimated lines equal the
+// full PSD (q = 1) max-decimated, exactly.
 //
-// Every product and sum is an explicit fmaf / __fmul_rn / __fadd_rn: the
-// compiler has no contraction left to choose, so the routine computes the
-// same bits wherever it is inlined.
+// How: a factored FFT, planned on the host (jsdr_tpu_torch/ops/fft_plan.py,
+// whose docstring defines every table read here; its plain mirror is tested
+// against numpy's FFT on the CPU for every n1 the card takes).
+//   stage 1: in place over the planar [n1][128] block, one
+//     decimation-in-frequency pass per radix (4, 2, 3, 5; butterflies
+//     written out), a __syncthreads() between passes. Two threads own each
+//     column (thread t: column t % 128, every other butterfly), so the 32
+//     lanes of a warp touch 32 consecutive words of one row: no bank
+//     conflicts, and every lane of a warp reads the same twiddle. The
+//     product of n1's prime factors above 5 (rg, 1 for every rate a user
+//     runs) is left to stage 2's row read as a direct rg-point DFT over
+//     rg consecutive rows. The rows stay digit-reversed (perm).
+//   stage 2: a warp per decimation group of q rows. For row k1 it reads
+//     storage row perm[k1] (lane l: c = l + 32*i, i < 4), multiplies by
+//     TW, runs a 4-point DFT over its registers, the W_128^(l*u) twiddle,
+//     and a 32-point FFT across lanes in five __shfl_xor_sync radix-2
+//     stages: lane l then holds k2 = 4*bitrev5(l) + u, four consecutive
+//     bins. No shared-memory round trip, no __syncthreads(); the group
+//     max and the running (max P, min index) stay in registers, and each
+//     lane writes its four bins of a line as one float4.
 //
-// Work split (kThreads = 256, 8 warps):
-//   stage 1: a warp takes 4 columns at a time, copies them (n1 x 4 complex)
-//     into its own buffer, then each lane accumulates 3 rows k1 x 4 columns
-//     in registers over j (n1 complex MACs each) and writes C = B * TW back
-//     over the columns, in place;
-//   stage 2: a warp takes whole decimation groups (q >= 8: one group in
-//     chunks of <= 8 rows; q < 8: 8/q groups), each lane 4 bins k2 for up to
-//     8 rows in registers over the 128 columns c; the group max and the
-//     running (max P, min index) stay in registers; the peak is reduced over
-//     the warp by shuffles, then over the CTA in shared memory.
+// Every product and sum is an explicit fmaf / __fmul_rn / __fadd_rn /
+// __fsub_rn: the compiler has no contraction left to choose, so the routine
+// computes the same bits wherever it is inlined.
 //
-// What bounds it: arithmetic. The direct two-stage DFT is (n1^2 * 128 +
-// n1 * 128^2) complex MACs per block (1,948,800 at n = 9600: 15.6 MFLOP)
-// for 8 bytes of input per sample; a factored FFT would need far fewer.
+// What bounds it: at n = 9600 the FFT is ~0.64 MFLOP a block (5 n log2 n)
+// on 77 KB of samples, so device memory (8 bytes a sample read, once) and
+// the shared-memory passes over the block (4 for 75 = 3*5*5: 3 in place,
+// 1 read) are the limits, not the arithmetic. Shared memory holds the
+// block only (8 bytes a sample), so n1 <= 225 fits one CTA beside the
+// merged kernel's static arrays; the tables (a few KB) are read through
+// the read-only cache.
 #pragma once
 
 #include <climits>
@@ -52,35 +64,71 @@ namespace {
 constexpr int kN2 = 128;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 4;        // stage 1: columns per warp task
-constexpr int kK1PerLane = 3;   // stage 1: rows per lane per pass
-constexpr int kRows = 8;        // stage 2: rows per chunk
-constexpr int kBins = kN2 / 32;  // stage 2: bins k2 per lane
+constexpr int kColThreads = kThreads / kN2;  // stage 1: threads per column
+constexpr int kRegs = kN2 / 32;              // stage 2: values per lane
+constexpr int kS2Tw = 7;                     // stage 2: twiddles per lane
 constexpr float kEps = 1e-30f;
 
-struct Tables {
-  const float* w1r;  // [n1, n1]
-  const float* w1i;
-  const float* twr;  // [n1, 128]
+// The plan's device tables (fft_plan.py::plan_tables) and TW.
+struct Plan {
+  const int* passes;  // [n_pass, 4]: radix, L, stride, twiddle offset
+  const float* ptwr;  // pass twiddles W_L^(j*k) at offset + j*(r-1) + k-1
+  const float* ptwi;
+  const int* perm;    // [n1] storage row of frequency k1
+  const float* gwr;   // [rg] W_rg^t
+  const float* gwi;
+  const float* s2r;   // [32, 7] stage 2's lane twiddles
+  const float* s2i;
+  const int* k2map;   // [32, 4] k2 of (lane, register)
+  const float* twr;   // [n1, 128] TW
   const float* twi;
-  const float* w2r;  // [128, 128]
-  const float* w2i;
+  int n_pass;
+  int rg;
 };
 
-// Dynamic shared memory of one CTA: the block's two planes (n floats each)
-// and each warp's stage-1 buffer (2 planes of n1 x kCols floats).
+// Dynamic shared memory of one CTA: the block's two planes (n floats each).
 __host__ __device__ constexpr size_t smem_bytes(int n1) {
-  return sizeof(float) * (2 * static_cast<size_t>(n1) * kN2 +
-                          static_cast<size_t>(kWarps) * 2 * n1 * kCols);
+  return sizeof(float) * 2 * static_cast<size_t>(n1) * kN2;
 }
 
-// acc += w * x (complex), four fused multiply-adds in a fixed order
-__device__ __forceinline__ void cmac(float& acc_r, float& acc_i, float wr,
-                                     float wi, float xr, float xi) {
-  acc_r = fmaf(wr, xr, acc_r);
-  acc_r = fmaf(-wi, xi, acc_r);
-  acc_i = fmaf(wr, xi, acc_i);
-  acc_i = fmaf(wi, xr, acc_i);
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
+}
+
+// a * (wr + i wi)
+__device__ __forceinline__ float2 cmul(float2 a, float wr, float wi) {
+  return make_float2(fmaf(a.x, wr, -__fmul_rn(a.y, wi)),
+                     fmaf(a.x, wi, __fmul_rn(a.y, wr)));
+}
+
+// acc += (wr + i wi) * x, four fused multiply-adds in a fixed order
+__device__ __forceinline__ void cmac(float2& acc, float wr, float wi,
+                                     float2 x) {
+  acc.x = fmaf(wr, x.x, acc.x);
+  acc.x = fmaf(-wi, x.y, acc.x);
+  acc.y = fmaf(wr, x.y, acc.y);
+  acc.y = fmaf(wi, x.x, acc.y);
+}
+
+// a - i b and a + i b
+__device__ __forceinline__ float2 sub_i(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.y), __fsub_rn(a.y, b.x));
+}
+__device__ __forceinline__ float2 add_i(float2 a, float2 b) {
+  return make_float2(__fsub_rn(a.x, b.y), __fadd_rn(a.y, b.x));
+}
+
+// a + s * b (s real)
+__device__ __forceinline__ float2 axpy(float2 a, float s, float2 b) {
+  return make_float2(fmaf(s, b.x, a.x), fmaf(s, b.y, a.y));
+}
+
+__device__ __forceinline__ float2 scale(float s, float2 b) {
+  return make_float2(__fmul_rn(s, b.x), __fmul_rn(s, b.y));
 }
 
 __device__ __forceinline__ float to_db(float p) {
@@ -93,76 +141,150 @@ __device__ __forceinline__ bool better(float p, int i, float bp, int bi) {
   return p > bp || (p == bp && i < bi);
 }
 
-// Stage 1 + twiddle, in place over ar/ai ([n1, 128] planes).
-__device__ __forceinline__ void stage1(float* ar, float* ai, float* buf,
-                                       int n1, const Tables& tb) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* br = buf + static_cast<size_t>(warp) * 2 * n1 * kCols;
-  float* bi = br + n1 * kCols;
-  for (int c0 = warp * kCols; c0 < kN2; c0 += kWarps * kCols) {
-    for (int j = lane; j < n1; j += 32) {
-      *reinterpret_cast<float4*>(br + j * kCols) =
-          *reinterpret_cast<const float4*>(ar + j * kN2 + c0);
-      *reinterpret_cast<float4*>(bi + j * kCols) =
-          *reinterpret_cast<const float4*>(ai + j * kN2 + c0);
+// The forward R-point DFT of x, in place (W_R = exp(-2 pi i / R)).
+template <int R>
+__device__ __forceinline__ void butterfly(float2 (&x)[R]);
+
+template <>
+__device__ __forceinline__ void butterfly<2>(float2 (&x)[2]) {
+  const float2 a = x[0];
+  x[0] = cadd(a, x[1]);
+  x[1] = csub(a, x[1]);
+}
+
+template <>
+__device__ __forceinline__ void butterfly<4>(float2 (&x)[4]) {
+  const float2 a = cadd(x[0], x[2]), b = csub(x[0], x[2]);
+  const float2 c = cadd(x[1], x[3]), d = csub(x[1], x[3]);
+  x[0] = cadd(a, c);
+  x[2] = csub(a, c);
+  x[1] = sub_i(b, d);
+  x[3] = add_i(b, d);
+}
+
+template <>
+__device__ __forceinline__ void butterfly<3>(float2 (&x)[3]) {
+  constexpr float kC = -0.5f;                    // cos(2 pi / 3)
+  constexpr float kS = 0.866025403784438647f;    // sin(2 pi / 3)
+  const float2 t = cadd(x[1], x[2]);
+  const float2 d = scale(kS, csub(x[1], x[2]));
+  const float2 m = axpy(x[0], kC, t);
+  x[0] = cadd(x[0], t);
+  x[1] = sub_i(m, d);
+  x[2] = add_i(m, d);
+}
+
+template <>
+__device__ __forceinline__ void butterfly<5>(float2 (&x)[5]) {
+  constexpr float kC1 = 0.309016994374947424f;   // cos(2 pi / 5)
+  constexpr float kC2 = -0.809016994374947424f;  // cos(4 pi / 5)
+  constexpr float kS1 = 0.951056516295153572f;   // sin(2 pi / 5)
+  constexpr float kS2 = 0.587785252292473129f;   // sin(4 pi / 5)
+  const float2 a1 = cadd(x[1], x[4]), b1 = csub(x[1], x[4]);
+  const float2 a2 = cadd(x[2], x[3]), b2 = csub(x[2], x[3]);
+  const float2 m1 = axpy(axpy(x[0], kC1, a1), kC2, a2);
+  const float2 m2 = axpy(axpy(x[0], kC2, a1), kC1, a2);
+  const float2 n1 = axpy(scale(kS1, b1), kS2, b2);
+  const float2 n2 = axpy(scale(kS2, b1), -kS1, b2);
+  x[0] = cadd(cadd(x[0], a1), a2);
+  x[1] = sub_i(m1, n1);
+  x[4] = add_i(m1, n1);
+  x[2] = sub_i(m2, n2);
+  x[3] = add_i(m2, n2);
+}
+
+// One in-place decimation-in-frequency pass of radix R over every column:
+// butterfly (blk, j) takes rows blk*L + j + m*s (m < R), and its output k
+// (times W_L^(j*k)) goes back to row blk*L + j + k*s.
+template <int R>
+__device__ __forceinline__ void fft_pass(float* ar, float* ai, int n1,
+                                         int len, int s, const float* twr,
+                                         const float* twi) {
+  const int c = threadIdx.x % kN2;
+  for (int b = threadIdx.x / kN2; b < n1 / R; b += kColThreads) {
+    const int blk = b / s;
+    const int j = b - blk * s;
+    const int at = (blk * len + j) * kN2 + c;
+    float2 x[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+      x[m] = make_float2(ar[at + m * s * kN2], ai[at + m * s * kN2]);
+    butterfly<R>(x);
+    if (j != 0) {  // the twiddles of j = 0 are all 1
+#pragma unroll
+      for (int k = 1; k < R; ++k)
+        x[k] = cmul(x[k], __ldg(twr + j * (R - 1) + k - 1),
+                    __ldg(twi + j * (R - 1) + k - 1));
     }
-    __syncwarp();
-    for (int kb = 0; kb < n1; kb += 32 * kK1PerLane) {
-      float accr[kK1PerLane][kCols], acci[kK1PerLane][kCols];
 #pragma unroll
-      for (int u = 0; u < kK1PerLane; ++u)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) accr[u][c] = acci[u][c] = 0.f;
-      for (int j = 0; j < n1; ++j) {
-        const float4 xr = *reinterpret_cast<const float4*>(br + j * kCols);
-        const float4 xi = *reinterpret_cast<const float4*>(bi + j * kCols);
-#pragma unroll
-        for (int u = 0; u < kK1PerLane; ++u) {
-          const int k1 = kb + lane + 32 * u;
-          float wr = 0.f, wi = 0.f;
-          if (k1 < n1) {
-            wr = __ldg(tb.w1r + j * n1 + k1);
-            wi = __ldg(tb.w1i + j * n1 + k1);
-          }
-          cmac(accr[u][0], acci[u][0], wr, wi, xr.x, xi.x);
-          cmac(accr[u][1], acci[u][1], wr, wi, xr.y, xi.y);
-          cmac(accr[u][2], acci[u][2], wr, wi, xr.z, xi.z);
-          cmac(accr[u][3], acci[u][3], wr, wi, xr.w, xi.w);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kK1PerLane; ++u) {
-        const int k1 = kb + lane + 32 * u;
-        if (k1 >= n1) continue;
-        const float4 tr =
-            __ldg(reinterpret_cast<const float4*>(tb.twr + k1 * kN2 + c0));
-        const float4 ti =
-            __ldg(reinterpret_cast<const float4*>(tb.twi + k1 * kN2 + c0));
-        const float twr[kCols] = {tr.x, tr.y, tr.z, tr.w};
-        const float twi[kCols] = {ti.x, ti.y, ti.z, ti.w};
-        float cr[kCols], ci[kCols];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          cr[c] = fmaf(accr[u][c], twr[c], -__fmul_rn(acci[u][c], twi[c]));
-          ci[c] = fmaf(accr[u][c], twi[c], __fmul_rn(acci[u][c], twr[c]));
-        }
-        *reinterpret_cast<float4*>(ar + k1 * kN2 + c0) =
-            make_float4(cr[0], cr[1], cr[2], cr[3]);
-        *reinterpret_cast<float4*>(ai + k1 * kN2 + c0) =
-            make_float4(ci[0], ci[1], ci[2], ci[3]);
-      }
+    for (int m = 0; m < R; ++m) {
+      ar[at + m * s * kN2] = x[m].x;
+      ai[at + m * s * kN2] = x[m].y;
     }
-    __syncwarp();
   }
+}
+
+// Stage 1's in-place passes. On entry the CTA is synchronised; on exit too.
+__device__ __forceinline__ void stage1(float* ar, float* ai, int n1,
+                                       const Plan& pl) {
+  for (int p = 0; p < pl.n_pass; ++p) {
+    const int r = __ldg(pl.passes + 4 * p);
+    const int len = __ldg(pl.passes + 4 * p + 1);
+    const int s = __ldg(pl.passes + 4 * p + 2);
+    const int off = __ldg(pl.passes + 4 * p + 3);
+    const float* twr = pl.ptwr + off;
+    const float* twi = pl.ptwi + off;
+    switch (r) {
+      case 2: fft_pass<2>(ar, ai, n1, len, s, twr, twi); break;
+      case 3: fft_pass<3>(ar, ai, n1, len, s, twr, twi); break;
+      case 4: fft_pass<4>(ar, ai, n1, len, s, twr, twi); break;
+      case 5: fft_pass<5>(ar, ai, n1, len, s, twr, twi); break;
+      default: break;  // the plan has no other in-place radix
+    }
+    __syncthreads();
+  }
+}
+
+// Row k1 of C = B * TW into the lane's registers (c = lane + 32*i): the
+// storage row perm[k1], or with a generic radix rg, its direct rg-point
+// DFT over the aligned group of rg rows that holds it.
+__device__ __forceinline__ void load_row(const float* ar, const float* ai,
+                                         int k1, int lane, const Plan& pl,
+                                         float2 (&x)[kRegs]) {
+  const int p = __ldg(pl.perm + k1);
+  if (pl.rg == 1) {
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i)
+      x[i] = make_float2(ar[p * kN2 + lane + 32 * i],
+                         ai[p * kN2 + lane + 32 * i]);
+  } else {
+    const int kg = p % pl.rg;
+    const int base = p - kg;
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) x[i] = make_float2(0.f, 0.f);
+    int t = 0;  // (m * kg) mod rg
+    for (int m = 0; m < pl.rg; ++m) {
+      const float wr = __ldg(pl.gwr + t), wi = __ldg(pl.gwi + t);
+      const int row = (base + m) * kN2 + lane;
+#pragma unroll
+      for (int i = 0; i < kRegs; ++i)
+        cmac(x[i], wr, wi, make_float2(ar[row + 32 * i], ai[row + 32 * i]));
+      t += kg;
+      if (t >= pl.rg) t -= pl.rg;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i)
+    x[i] = cmul(x[i], __ldg(pl.twr + k1 * kN2 + lane + 32 * i),
+                __ldg(pl.twi + k1 * kN2 + lane + 32 * i));
 }
 
 // The whole body. On entry ar/ai hold the windowed block (sample t at
 // index t) and the CTA is synchronised. Writes wf[g * 128 + k2] for
 // g < n1 / q, *mx and *idx.
-__device__ __forceinline__ void spectrum_body(float* ar, float* ai,
-                                              float* buf, int n1, int q,
-                                              float cf, const Tables& tb,
+__device__ __forceinline__ void spectrum_body(float* ar, float* ai, int n1,
+                                              int q, float cf,
+                                              const Plan& pl,
                                               float* __restrict__ wf,
                                               float* __restrict__ mx,
                                               int* __restrict__ idx) {
@@ -171,80 +293,56 @@ __device__ __forceinline__ void spectrum_body(float* ar, float* ai,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  stage1(ar, ai, buf, n1, tb);
-  __syncthreads();
+  stage1(ar, ai, n1, pl);
 
-  // ---- stage 2, power, decimation, peak
-  const int n_groups = n1 / q;
-  const int groups_per_task = q >= kRows ? 1 : kRows / q;
-  const int rows_per_task = groups_per_task * q;
-  const int n_tasks = (n_groups + groups_per_task - 1) / groups_per_task;
+  // ---- stage 2, power, decimation, peak: a warp per group of q rows
+  float2 tw[kS2Tw];
+#pragma unroll
+  for (int u = 0; u < kS2Tw; ++u)
+    tw[u] = make_float2(__ldg(pl.s2r + lane * kS2Tw + u),
+                        __ldg(pl.s2i + lane * kS2Tw + u));
+  const int k2 = __ldg(pl.k2map + lane * kRegs);  // register u: k2 + u
   float best_p = -1.f;
   int best_i = INT_MAX;
-  for (int task = warp; task < n_tasks; task += kWarps) {
-    const int r_begin = task * rows_per_task;
-    const int r_end = min(r_begin + rows_per_task, n1);
-    const int n_chunks = (r_end - r_begin + kRows - 1) / kRows;
-    const int chunk = (r_end - r_begin + n_chunks - 1) / n_chunks;
-    float gmax[kBins];
+  for (int g = warp; g < n1 / q; g += kWarps) {
+    float gmax[kRegs] = {0.f, 0.f, 0.f, 0.f};  // set at the group's first row
+    for (int k1 = g * q; k1 < (g + 1) * q; ++k1) {
+      float2 x[kRegs];
+      load_row(ar, ai, k1, lane, pl, x);
+      butterfly<4>(x);
 #pragma unroll
-    for (int i = 0; i < kBins; ++i) gmax[i] = 0.f;  // set at each group's first row
-    for (int r0 = r_begin; r0 < r_end; r0 += chunk) {
-      const int nr = min(chunk, r_end - r0);
-      float dr[kRows][kBins], di[kRows][kBins];
+      for (int u = 1; u < kRegs; ++u)
+        x[u] = cmul(x[u], tw[u - 1].x, tw[u - 1].y);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int st = 0; st < 5; ++st) {
+        const int h = 16 >> st;
+        const bool upper = (lane & h) != 0;
 #pragma unroll
-        for (int i = 0; i < kBins; ++i) dr[r][i] = di[r][i] = 0.f;
-      for (int c0 = 0; c0 < kN2; c0 += 4) {
-        float wr[4][kBins], wi[4][kBins];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-          for (int i = 0; i < kBins; ++i) {
-            wr[cc][i] = __ldg(tb.w2r + (c0 + cc) * kN2 + lane + 32 * i);
-            wi[cc][i] = __ldg(tb.w2i + (c0 + cc) * kN2 + lane + 32 * i);
-          }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r < nr) {
-            const float4 cr =
-                *reinterpret_cast<const float4*>(ar + (r0 + r) * kN2 + c0);
-            const float4 ci =
-                *reinterpret_cast<const float4*>(ai + (r0 + r) * kN2 + c0);
-#pragma unroll
-            for (int i = 0; i < kBins; ++i) {
-              cmac(dr[r][i], di[r][i], wr[0][i], wi[0][i], cr.x, ci.x);
-              cmac(dr[r][i], di[r][i], wr[1][i], wi[1][i], cr.y, ci.y);
-              cmac(dr[r][i], di[r][i], wr[2][i], wi[2][i], cr.z, ci.z);
-              cmac(dr[r][i], di[r][i], wr[3][i], wi[3][i], cr.w, ci.w);
-            }
-          }
+        for (int u = 0; u < kRegs; ++u) {
+          const float2 o = make_float2(
+              __shfl_xor_sync(0xffffffffu, x[u].x, h),
+              __shfl_xor_sync(0xffffffffu, x[u].y, h));
+          x[u] = upper ? csub(o, x[u]) : cadd(x[u], o);
+          // W_2h^(lane mod h) on the upper lane, 1 on the lower
+          if (st < 4) x[u] = cmul(x[u], tw[3 + st].x, tw[3 + st].y);
         }
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < nr) {
-          const int k1 = r0 + r;
-          const int in_group = k1 % q;
-#pragma unroll
-          for (int i = 0; i < kBins; ++i) {
-            const int k2 = lane + 32 * i;
-            const float p = __fmul_rn(
-                __fadd_rn(__fmul_rn(dr[r][i], dr[r][i]),
-                          __fmul_rn(di[r][i], di[r][i])),
-                cf);
-            if (better(p, k1 * kN2 + k2, best_p, best_i)) {
-              best_p = p;
-              best_i = k1 * kN2 + k2;
-            }
-            const float db = to_db(p);
-            gmax[i] = in_group == 0 ? db : fmaxf(gmax[i], db);
-            if (in_group == q - 1) wf[(k1 / q) * kN2 + k2] = gmax[i];
-          }
+      for (int u = 0; u < kRegs; ++u) {
+        const float p = __fmul_rn(
+            __fadd_rn(__fmul_rn(x[u].x, x[u].x), __fmul_rn(x[u].y, x[u].y)),
+            cf);
+        const int flat = k1 * kN2 + k2 + u;
+        if (better(p, flat, best_p, best_i)) {
+          best_p = p;
+          best_i = flat;
         }
+        const float db = to_db(p);
+        gmax[u] = k1 == g * q ? db : fmaxf(gmax[u], db);
       }
     }
+    *reinterpret_cast<float4*>(wf + g * kN2 + k2) =
+        make_float4(gmax[0], gmax[1], gmax[2], gmax[3]);
   }
 
   // ---- peak: warp, then CTA

@@ -1,5 +1,5 @@
-// Waterfall spectrum for Hopper (sm_90a): Hamming window + two-stage DFT
-// (n = n1 * 128) + |X|^2 * (2/n)^2 + max over q consecutive k1 + dB, and
+// Waterfall spectrum for Hopper (sm_90a): Hamming window + FFT of n =
+// n1 * 128 samples + |X|^2 * (2/n)^2 + max over q consecutive k1 + dB, and
 // the per-block peak, over contiguous [S, T] stream rows.
 //
 // Replaces: jsdr_tpu/ops/pallas_kernels.py::_spectrum_wf_kernel (wrappers
@@ -9,18 +9,19 @@
 //       [.., k1/q, k2] covers natural bins n1*k2 + k1),
 //   mx  [nblk, S] peak dB, idx [nblk, S] flat permuted argmax k1*128 + k2.
 //
-// What bounds it on this card: arithmetic. The direct DFT does
-// (n1^2 * 128 + n1 * 128^2) complex MACs per block, 8 flops each (15.6
-// MFLOP at n = 9600), against 8 bytes read per sample: at 128 x 460800
-// samples that is ~96 GFLOP (1.43 ms at 67 TFLOP/s fp32) and ~0.52 GB
-// moved (0.16 ms at 3.35 TB/s). A factored FFT (75 = 3*5*5, 128 = 2^7)
-// would cut the count; this kernel keeps the reference's direct form.
+// What bounds it on this card: device memory. At 128 x 96000 samples it
+// reads 98 MB (8 bytes a sample, once) and writes 7.9 MB of lines, ~0.03
+// ms at 3.35 TB/s; a factored FFT's ~0.9 GFLOP there is ~0.014 ms at 67
+// TFLOP/s fp32. Within the CTA, the shared-memory passes over the block and
+// stage 2's shuffles (spectrum_body.cuh) come on top of the read.
 //
 // Design: one CTA per (FFT block, stream). It reads the block once,
 // windowed, into shared memory (76.8 KB at n = 9600, 153.6 KB at 19200),
-// and runs spectrum_body.cuh on it. The TPU kernel's 8-stream x 4-block
-// VMEM tiling, its lcm(8, q)-padded scratch and its bf16x3 Karatsuba MXU
-// products are not carried over: everything is fp32 FMAs, no tensor cores.
+// and runs the factored FFT of spectrum_body.cuh on it, from the host plan
+// of jsdr_tpu_torch/ops/fft_plan.py. The TPU kernel's 8-stream x 4-block
+// VMEM tiling, its lcm(8, q)-padded scratch and its dense DFT matrices on
+// the MXU (bf16x3 Karatsuba products) are not carried over: everything is
+// fp32 FMAs, no tensor cores.
 #include <cuda_runtime.h>
 
 #include "spectrum_body.cuh"
@@ -31,7 +32,7 @@ using jsdr_spec::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 spectrum_wf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                   const float* __restrict__ win, jsdr_spec::Tables tb,
+                   const float* __restrict__ win, jsdr_spec::Plan pl,
                    float* __restrict__ wf, float* __restrict__ mx,
                    int* __restrict__ idx, int n_streams, int t_len, int n1,
                    int q, float cf) {
@@ -39,7 +40,6 @@ spectrum_wf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float* ar = reinterpret_cast<float*>(smem4);
   const int n = n1 * jsdr_spec::kN2;
   float* ai = ar + n;
-  float* buf = ai + n;
   const int b = blockIdx.x;
   const int s = blockIdx.y;
   const long long at = static_cast<long long>(s) * t_len +
@@ -51,20 +51,20 @@ spectrum_wf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
   __syncthreads();
   const long long line = static_cast<long long>(b) * n_streams + s;
-  jsdr_spec::spectrum_body(ar, ai, buf, n1, q, cf, tb,
+  jsdr_spec::spectrum_body(ar, ai, n1, q, cf, pl,
                            wf + line * (n1 / q) * jsdr_spec::kN2, mx + line,
                            idx + line);
 }
 
 }  // namespace
 
-extern "C" int jsdr_spectrum_wf(const float* xr, const float* xi,
-                                const float* win, const float* w1r,
-                                const float* w1i, const float* twr,
-                                const float* twi, const float* w2r,
-                                const float* w2i, float* wf, float* mx,
-                                int* idx, int n_streams, int t_len, int n1,
-                                int q, float cf, void* stream) {
+extern "C" int jsdr_spectrum_wf(
+    const float* xr, const float* xi, const float* win, const int* passes,
+    const float* ptwr, const float* ptwi, const int* perm, const float* gwr,
+    const float* gwi, const float* s2r, const float* s2i, const int* k2map,
+    const float* twr, const float* twi, float* wf, float* mx, int* idx,
+    int n_streams, int t_len, int n1, int q, int n_pass, int rg, float cf,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = t_len / (n1 * jsdr_spec::kN2);
   if (nblk == 0 || n_streams == 0) return 0;
@@ -73,8 +73,9 @@ extern "C" int jsdr_spectrum_wf(const float* xr, const float* xi,
       spectrum_wf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const jsdr_spec::Tables tb{w1r, w1i, twr, twi, w2r, w2i};
+  const jsdr_spec::Plan pl{passes, ptwr, ptwi, perm, gwr, gwi, s2r,
+                           s2i,    k2map, twr,  twi,  n_pass, rg};
   spectrum_wf_kernel<<<dim3(nblk, n_streams), kThreads, smem, st>>>(
-      xr, xi, win, tb, wf, mx, idx, n_streams, t_len, n1, q, cf);
+      xr, xi, win, pl, wf, mx, idx, n_streams, t_len, n1, q, cf);
   return static_cast<int>(cudaGetLastError());
 }

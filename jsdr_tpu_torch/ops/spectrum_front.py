@@ -22,8 +22,8 @@ from . import _build
 from .cplx import CF
 from .mix_decimate import N_TAPS, PERIOD, mix_decimate_ref
 from .spectrum_fused import (N2, check_cuda_size, check_geometry,
-                             power_scale, spec_tables, spectrum_wf_ref,
-                             wf_group_for)
+                             kernel_tables, plan_ints, power_scale,
+                             spectrum_wf_ref, wf_group_for)
 
 
 def sf_geometry(n: int, m: int) -> tuple[int, int]:
@@ -89,20 +89,30 @@ def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
     yi = torch.empty_like(yr)
     tr = torch.empty((s, N_TAPS - 1), dtype=torch.float32, device=dev)
     ti = torch.empty_like(tr)
-    tb = spec_tables(n, window, dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.jsdr_spec_front(
-            iq.re.data_ptr(), iq.im.data_ptr(),
-            *(x.data_ptr() for x in tb), cos_pat.data_ptr(),
-            sin_pat.data_ptr(), taps.data_ptr(), tail.re.data_ptr(),
-            tail.im.data_ptr(), wf.data_ptr(), mx.data_ptr(), idx.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), tr.data_ptr(), ti.data_ptr(), s,
-            t_len, n1, q, power_scale(n), m, float(gain), stream)
+            iq.re.data_ptr(), iq.im.data_ptr(), *kernel_tables(n, window, dev),
+            cos_pat.data_ptr(), sin_pat.data_ptr(), taps.data_ptr(),
+            tail.re.data_ptr(), tail.im.data_ptr(), wf.data_ptr(),
+            mx.data_ptr(), idx.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            tr.data_ptr(), ti.data_ptr(), s, t_len, n1, q, *plan_ints(n),
+            power_scale(n), m, float(gain), stream)
     _build.check(code, "spectrum_front_fused")
     spectrum_front_fused.launches += 1
     return wf, mx, idx, CF(yr, yi), CF(tr, ti)
 
 
 spectrum_front_fused.launches = 0
+
+
+def static_smem_bytes() -> int:
+    """The compiled merged kernel's static shared memory (bytes), on the
+    card; ``spectrum_fused.STATIC_SMEM`` must hold it."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    _build.check(_build.kernels().jsdr_spec_front_static_smem(
+        ctypes.byref(out)), "spec_front static shared memory")
+    return out.value

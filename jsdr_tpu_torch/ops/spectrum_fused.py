@@ -4,8 +4,9 @@ contiguous [S, T] stream rows — the port of
 ``spectrum_fused`` and ``spectrum_waterfall``).
 
 For each n-sample block (n = n1 * 128) of each stream: Hamming window,
-DFT as B = W1 @ A (A the block as [n1, 128]), twiddle, D = C @ W2^T,
-power |D|^2 * (2/n)^2, dB, the max over q consecutive k1, and the block's
+the two-stage DFT (an n1-point DFT down the columns of the block as
+[n1, 128], a twiddle, a 128-point DFT along the rows), power
+|D|^2 * (2/n)^2, dB, the max over q consecutive k1, and the block's
 peak. Outputs keep the reference's layouts: wf ``[T//n, S, n1//q, 128]``
 in PERMUTED order (element ``[.., k1, k2]`` is natural bin ``n1*k2 + k1``
 for q = 1; for q > 1, pixel ``(n1//q)*k2 + g`` covers q consecutive
@@ -16,8 +17,11 @@ natural bins), peak dB ``[T//n, S]`` and the flat permuted argmax
 :func:`spectrum_waterfall` (q = :func:`wf_group_for`) launch the CUDA
 kernel (``csrc/spectrum_wf.cu``) for CUDA tensors, counting each launch
 in ``spectrum_fused.launches``, and run :func:`spectrum_wf_ref` for CPU
-tensors. Both are fp32 throughout; the reference's ``precision`` (bf16x3
-or HIGHEST MXU passes) and ``interpret`` arguments have no counterpart.
+tensors. The kernel computes the transform as a factored FFT planned by
+:mod:`.fft_plan`; :func:`spectrum_fft_ref` is the plain mirror of its pass
+order, which only the tests call. All are fp32 throughout; the
+reference's ``precision`` (bf16x3 or HIGHEST MXU passes) and
+``interpret`` arguments have no counterpart.
 """
 
 from __future__ import annotations
@@ -30,22 +34,34 @@ import torch
 
 from . import _build
 from .cplx import CF
+from .fft_plan import fft_block, fft_plan, plan_tables
 from .mxu_fft import _dft_mats, _twiddles
 from .windows import hamming_np
 
 N2 = 128
 MAX_N1 = 512        # the reference's rule: n // 128 <= 512
-# The CUDA kernels hold one block (8 bytes a sample) and the stage-1
-# buffers of 8 warps (256 bytes a row) in one CTA's shared memory: 1280
-# bytes per row of 128 samples (csrc/spectrum_body.cuh::smem_bytes), plus
-# ~1.4 KB of static arrays, within the 232,448 bytes a block may use:
-# n1 <= 180, n <= 23040.
-CUDA_MAX_N1 = 180
+SMEM_PER_CTA = 232_448   # the shared memory a CTA may use on Hopper
+# the merged kernel's static shared arrays (csrc/spec_front.cu: taps,
+# pattern and halo, 1,340 bytes; the body's peak reduction, 64), rounded
+# up to 16; chip_smoke.py holds the compiled kernel's figure to it
+STATIC_SMEM = 1408
+
+
+def smem_bytes(n1: int) -> int:
+    """The dynamic shared memory of one spectrum CTA: the block's two
+    float32 planes, 8 bytes a sample (csrc/spectrum_body.cuh::smem_bytes)."""
+    return 8 * N2 * n1
+
+
+# The card's largest n1: one block in one CTA's shared memory beside the
+# merged kernel's static arrays (225: n <= 28,800)
+CUDA_MAX_N1 = (SMEM_PER_CTA - STATIC_SMEM) // smem_bytes(1)
 _EPS = 1e-30
 
 
 class SpecTables(NamedTuple):
-    """float32 device tables of the spectrum kernels and plain versions."""
+    """float32 device tables: the window and TW, which the kernels and the
+    plain versions read, and the DFT matrices of :func:`spectrum_wf_ref`."""
     win: torch.Tensor   # [n]
     w1r: torch.Tensor   # [n1, n1] _dft_mats(n1, -1)
     w1i: torch.Tensor
@@ -68,6 +84,21 @@ def _tables_on(n: int, window: bool, device: str) -> SpecTables:
 def spec_tables(n: int, window: bool, device: torch.device) -> SpecTables:
     """The tables for block size ``n`` on ``device`` (built once)."""
     return _tables_on(n, bool(window), str(torch.device(device)))
+
+
+def kernel_tables(n: int, window: bool, device: torch.device):
+    """The device pointers a spectrum kernel takes after its input planes:
+    the window, the FFT plan's tables, and TW."""
+    tb = spec_tables(n, window, device)
+    return (tb.win.data_ptr(),
+            *(x.data_ptr() for x in plan_tables(n // N2, device)),
+            tb.twr.data_ptr(), tb.twi.data_ptr())
+
+
+def plan_ints(n: int) -> tuple[int, int]:
+    """(number of in-place passes, generic radix) of the plan for n."""
+    p = fft_plan(n // N2)
+    return len(p.radices), p.rg
 
 
 def power_scale(n: int) -> float:
@@ -105,24 +136,17 @@ def check_cuda_size(fn: str, n: int) -> None:
             f"one FFT block in shared memory (n // 128 <= {CUDA_MAX_N1})")
 
 
-def spectrum_wf_ref(iq: CF, n: int, window: bool = True, q: int = 1):
-    """Plain PyTorch version: the two-stage DFT as ``torch.matmul`` on the
-    kernels' float32 tables (in true fp32 on a card: ``require_device``
-    turns TF32 off), then power, dB, the max over q consecutive k1 and the
-    first maximum of the power in permuted flat order. Returns (wf
-    [T//n, S, n1//q, 128], peak dB [T//n, S], idx [T//n, S] int32)."""
+def _windowed(iq: CF, n: int, tb: SpecTables):
+    """The windowed blocks as [S, T//n, n1, 128] planes."""
     s, t_len = iq.shape
-    n1, nblk = n // N2, t_len // n
-    tb = spec_tables(n, window, iq.re.device)
-    win = tb.win.view(n1, N2)
-    ar = iq.re.reshape(s, nblk, n1, N2) * win
-    ai = iq.im.reshape(s, nblk, n1, N2) * win
-    br = tb.w1r @ ar - tb.w1i @ ai
-    bi = tb.w1r @ ai + tb.w1i @ ar
-    cr = br * tb.twr - bi * tb.twi
-    ci = br * tb.twi + bi * tb.twr
-    dr = cr @ tb.w2r.T - ci @ tb.w2i.T
-    di = cr @ tb.w2i.T + ci @ tb.w2r.T
+    shape = (s, t_len // n, n // N2, N2)
+    win = tb.win.view(n // N2, N2)
+    return iq.re.reshape(shape) * win, iq.im.reshape(shape) * win
+
+
+def _lines(dr, di, n: int, q: int):
+    """(wf, peak dB, idx) from D [S, T//n, n1, 128] (natural k1, k2)."""
+    s, nblk, n1 = dr.shape[:3]
     power = (dr * dr + di * di) * power_scale(n)
     db = 10.0 * torch.log10(torch.clamp_min(power, _EPS))
     wf = db.reshape(s, nblk, n1 // q, q, N2).amax(dim=3)
@@ -131,6 +155,33 @@ def spectrum_wf_ref(iq: CF, n: int, window: bool = True, q: int = 1):
     mx = 10.0 * torch.log10(torch.clamp_min(flat.amax(dim=-1), _EPS))
     return (wf.permute(1, 0, 2, 3).contiguous(), mx.T.contiguous(),
             idx.T.to(torch.int32).contiguous())
+
+
+def spectrum_wf_ref(iq: CF, n: int, window: bool = True, q: int = 1):
+    """Plain PyTorch version: the two-stage DFT as ``torch.matmul`` on the
+    float32 DFT tables (in true fp32 on a card: ``require_device`` turns
+    TF32 off), then power, dB, the max over q consecutive k1 and the first
+    maximum of the power in permuted flat order. Returns (wf
+    [T//n, S, n1//q, 128], peak dB [T//n, S], idx [T//n, S] int32)."""
+    tb = spec_tables(n, window, iq.re.device)
+    ar, ai = _windowed(iq, n, tb)
+    br = tb.w1r @ ar - tb.w1i @ ai
+    bi = tb.w1r @ ai + tb.w1i @ ar
+    cr = br * tb.twr - bi * tb.twi
+    ci = br * tb.twi + bi * tb.twr
+    dr = cr @ tb.w2r.T - ci @ tb.w2i.T
+    di = cr @ tb.w2i.T + ci @ tb.w2r.T
+    return _lines(dr, di, n, q)
+
+
+def spectrum_fft_ref(iq: CF, n: int, window: bool = True, q: int = 1):
+    """Plain mirror of the kernels' factored FFT: the same window and
+    outputs as :func:`spectrum_wf_ref`, with the transform taken pass by
+    pass on the plan's float32 tables (:func:`.fft_plan.fft_block`). Only
+    the tests call it: it is the CPU witness that the tables the kernels
+    read compute the DFT."""
+    ar, ai = _windowed(iq, n, spec_tables(n, window, iq.re.device))
+    return _lines(*fft_block(fft_plan(n // N2), ar, ai), n, q)
 
 
 def _spectrum_wf(iq: CF, n: int, window: bool, q: int):
@@ -153,14 +204,13 @@ def _spectrum_wf(iq: CF, n: int, window: bool, q: int):
     idx = torch.empty((nblk, s), dtype=torch.int32, device=dev)
     if wf.numel() == 0:
         return wf, mx, idx
-    tb = spec_tables(n, window, dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.jsdr_spectrum_wf(
-            iq.re.data_ptr(), iq.im.data_ptr(),
-            *(x.data_ptr() for x in tb), wf.data_ptr(), mx.data_ptr(),
-            idx.data_ptr(), s, t_len, n1, q, power_scale(n), stream)
+            iq.re.data_ptr(), iq.im.data_ptr(), *kernel_tables(n, window, dev),
+            wf.data_ptr(), mx.data_ptr(), idx.data_ptr(), s, t_len, n1, q,
+            *plan_ints(n), power_scale(n), stream)
     _build.check(code, "spectrum_fused")
     spectrum_fused.launches += 1
     return wf, mx, idx
@@ -171,7 +221,7 @@ def spectrum_fused(iq: CF, n: int, window: bool = True,
     """Fused window + FFT + PSD (+ peak search) over contiguous time rows.
 
     iq: CF of float32 [S, T] with T % n == 0, n % 128 == 0 and
-    n // 128 <= 512 (on a card, <= 180). Returns the dB PSD as
+    n // 128 <= 512 (on a card, <= ``CUDA_MAX_N1`` = 225). Returns the dB PSD as
     [T//n, S, n1, 128] in PERMUTED frequency order (element [..., k1, k2]
     is natural bin n1*k2 + k1; :func:`spectrum_natural_order` flattens
     it). ``with_peaks=True`` also returns (peak_db [T//n, S], flat

@@ -278,10 +278,13 @@ def test_wrapper_checks_inputs_and_runs_plain_on_cpu():
 
 def test_cuda_size_limit_is_the_shared_memory_limit():
     """The card's limit on n1 follows from the kernels' shared memory
-    (csrc/spectrum_body.cuh::smem_bytes: 1280 bytes per row, plus the
-    merged kernel's ~1.4 KB of static arrays, within 232,448 bytes)."""
+    (csrc/spectrum_body.cuh::smem_bytes: the block only, 1024 bytes per
+    row of 128 samples, plus the merged kernel's 1,408 bytes of static
+    arrays, within 232,448 bytes), and takes every rate up to 256 kS/s."""
     n1 = tsf.CUDA_MAX_N1
-    assert 1280 * n1 + 1408 <= 232448 < 1280 * (n1 + 1) + 1408
+    assert tsf.smem_bytes(n1) == 1024 * n1 and tsf.STATIC_SMEM == 1408
+    assert 1024 * n1 + 1408 <= 232448 < 1024 * (n1 + 1) + 1408
+    assert n1 >= 200
     tsf.check_cuda_size("k", 128 * n1)
     with pytest.raises(ValueError, match="too large for the CUDA kernel"):
         tsf.check_cuda_size("k", 128 * (n1 + 1))
