@@ -36,8 +36,8 @@ _SIGNATURES = {
     "jsdr_mix_decimate": [_P] * 11 + [_I, _I, _I, _F, _P],
     # mf_re, mf_im, e_ema, peak, new_peak, e_out, last_iq, valid, bit,
     # e_ema', peak', new_peak', e_out', last_iq', n_streams, n_groups,
-    # s1, a1, s2, a2, gate, stream
-    "jsdr_timing_recover": [_P] * 14 + [_I, _I, _F, _F, _F, _F, _F, _P],
+    # chunk, s1, a1, s2, a2, gate, stream
+    "jsdr_timing_recover": [_P] * 14 + [_I, _I, _I, _F, _F, _F, _F, _F, _P],
     # xr, xi, win, the plan (passes, ptwr, ptwi, perm, gwr, gwi, s2r, s2i,
     # k2map), twr, twi, wf, mx, idx, n_streams, t_len, n1, q, n_pass, rg,
     # cf, stream

@@ -10,7 +10,8 @@ peak0 <= (peak0+4)%8, slot 1 at new_peak if new_peak > (peak0+4)%8), the
 differential decision against the previous emission with the energy gate,
 and the e_out EMA. :func:`timing_recover_batch` launches the CUDA kernel
 (``csrc/timing.cu``) for CUDA tensors and runs :func:`timing_recover_ref`
-for CPU tensors.
+for CPU tensors. :func:`_timing_chunked_ref` mirrors the kernel's walk
+over chunks of :data:`CHUNK_GROUPS` groups, for the CPU tests only.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 from . import _build
 
 P_PHASES = 8
+# bit groups per chunk that one CTA stages into shared memory; also its
+# worker threads (one a group), so a multiple of 32 up to the kernel's 256
+CHUNK_GROUPS = 128
 
 
 def _coeffs(smooth1: float, smooth2: float):
@@ -90,6 +94,74 @@ def timing_recover_ref(mf_re, mf_im, e_ema, peak, new_peak, e_out, last_iq,
             am[:, -1].to(torch.int32), eo, last_iq_f)
 
 
+def _timing_chunked_ref(mf_re, mf_im, e_ema, peak, new_peak, e_out, last_iq,
+                        *, smooth1: float, smooth2: float, gate: float,
+                        chunk: int = CHUNK_GROUPS):
+    """The kernel's decomposition in plain PyTorch: each stream walked in
+    chunks of ``chunk`` groups with the kernel's carries, and every value
+    computed in :func:`timing_recover_ref`'s order, so the two agree bit
+    for bit. Per chunk: the 8 per-phase EMA chains (the only serial loop
+    over groups); per group, the first-maximum argmax, pk0/np0 from the
+    argmaxes one and two groups back (carried across chunks as peak and
+    new_peak), the fire flags and slot values; each fired slot's rank (the
+    fired slots before it in the chunk) places it in the chunk's list of
+    fired slots, and a slot decides against the entry one rank below its
+    own, or the carried last_iq at rank 0; e_out runs over the list; the
+    last entry becomes the carried last_iq. Returns the 7-tuple of
+    :func:`timing_recover_batch`. Nothing on the main path calls it."""
+    s, t_ds = mf_re.shape
+    g = t_ds // P_PHASES
+    s1, a1, s2, a2 = _coeffs(smooth1, smooth2)
+    fi = mf_re.reshape(s, g, P_PHASES)
+    fq = mf_im.reshape(s, g, P_PHASES)
+    ema, eo = e_ema, e_out
+    pk_c, np_c = peak.long(), new_peak.long()
+    li, lq = last_iq[:, 0], last_iq[:, 1]
+    valid = torch.empty((s, g, 2), dtype=torch.bool, device=mf_re.device)
+    bit = torch.empty_like(valid)
+    for g0 in range(0, g, chunk):
+        xr, xq = fi[:, g0:g0 + chunk], fq[:, g0:g0 + chunk]
+        cv = xr.shape[1]
+        traj = torch.empty_like(xr)                 # the chain lanes
+        for k in range(cv):
+            e1 = xr[:, k] * xr[:, k] + xq[:, k] * xq[:, k]
+            ema = ema * a1 + e1 * s1
+            traj[:, k] = ema
+        am = torch.argmax(traj, dim=2)              # the workers
+        np0 = torch.cat([np_c[:, None], am[:, :-1]], dim=1)
+        pk0 = torch.cat([pk_c[:, None], np0[:, :-1]], dim=1)
+        h = (pk0 + 4) % P_PHASES
+        on = torch.stack([pk0 <= h, np0 > h], dim=-1).reshape(s, 2 * cv)
+        slot_p = torch.stack([pk0, np0], dim=-1)
+        vi = xr.gather(2, slot_p).reshape(s, 2 * cv)
+        vq = xq.gather(2, slot_p).reshape(s, 2 * cv)
+        rank = on.long().cumsum(dim=1) - on.long()  # fired slots before
+        total = on.sum(dim=1)
+        # the list of fired slots; unfired slots write a spare last column
+        at = torch.where(on, rank, 2 * cv)
+        lst = [torch.zeros((s, 2 * cv + 1), dtype=v.dtype,
+                           device=v.device).scatter_(1, at, v)[:, :2 * cv]
+               for v in (vi, vq, (vi * vi + vq * vq) * s2)]
+        below = (rank - 1).clamp(min=0)
+        have = rank > 0
+        prev_i = torch.where(have, lst[0].gather(1, below), li[:, None])
+        prev_q = torch.where(have, lst[1].gather(1, below), lq[:, None])
+        di = -(prev_i * vi + prev_q * vq)
+        dq = prev_i * vq - prev_q * vi
+        e2 = torch.sqrt(di * di + dq * dq)
+        valid[:, g0:g0 + cv] = (on & (e2 > gate)).reshape(s, cv, 2)
+        bit[:, g0:g0 + cv] = (di < 0.0).reshape(s, cv, 2)
+        for k in range(2 * cv):                     # the e_out lane
+            eo = torch.where(k < total, eo * a2 + lst[2][:, k], eo)
+        last = (total - 1).clamp(min=0)[:, None]
+        li = torch.where(total > 0, lst[0].gather(1, last)[:, 0], li)
+        lq = torch.where(total > 0, lst[1].gather(1, last)[:, 0], lq)
+        pk_c, np_c = np0[:, -1], am[:, -1]
+    return (valid.reshape(s, 2 * g), bit.reshape(s, 2 * g), ema,
+            pk_c.to(torch.int32), np_c.to(torch.int32), eo,
+            torch.stack([li, lq], dim=1))
+
+
 def timing_recover_batch(mf_re, mf_im, e_ema, peak, new_peak, e_out,
                          last_iq, *, smooth1: float, smooth2: float,
                          gate: float):
@@ -127,7 +199,7 @@ def timing_recover_batch(mf_re, mf_im, e_ema, peak, new_peak, e_out,
         raise ValueError(f"timing_recover_batch: unsupported device {dev}")
     if mf_re.data_ptr() % 16 or mf_im.data_ptr() % 16:
         raise ValueError("timing_recover_batch: mf planes must be 16-byte "
-                         "aligned (the kernel reads float4 vectors)")
+                         "aligned (the kernel copies 16-byte vectors)")
 
     g = t_ds // P_PHASES
     valid = torch.empty((s, 2 * g), dtype=torch.bool, device=dev)
@@ -146,8 +218,8 @@ def timing_recover_batch(mf_re, mf_im, e_ema, peak, new_peak, e_out,
             peak.data_ptr(), new_peak.data_ptr(), e_out.data_ptr(),
             last_iq.data_ptr(), valid.data_ptr(), bit.data_ptr(),
             ema_f.data_ptr(), peak_f.data_ptr(), new_peak_f.data_ptr(),
-            e_out_f.data_ptr(), last_f.data_ptr(), s, g, s1, a1, s2, a2,
-            float(gate), stream)
+            e_out_f.data_ptr(), last_f.data_ptr(), s, g, CHUNK_GROUPS, s1,
+            a1, s2, a2, float(gate), stream)
     _build.check(code, "timing_recover_batch")
     timing_recover_batch.launches += 1
     return valid, bit, ema_f, peak_f, new_peak_f, e_out_f, last_f
