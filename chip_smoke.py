@@ -45,15 +45,24 @@ MAIN_SHAPE = (128, 96000)           # streams x samples per 1 s block
 # kernel 1 checks: (streams, samples, rate) at 96 k, 192 k, and a ragged
 # last tile (9544 outputs = 74 tiles of 128 + 72)
 MIX_CASES = ((128, 96000, 96000), (64, 192000, 192000), (13, 95440, 96000))
+# kernel 6: kernel 1's cases, then two rates whose m (14 at 134.4 k; 40 at
+# 384 k, where a sub-chunk shrinks to 128 outputs) the kernel takes at run
+# time
+MF_CASES = MIX_CASES + ((64, 134400, 134400), (32, 384000, 384000))
 # kernels 3 and 4: (streams, samples, rate): the flagship shape (4.8 s
 # blocks at 96 k, bench.py's), 192 k, a ragged stream count, the 1 s
-# block that takes the staged branch, and 134.4 k (n1 = 105 = 3*5*7: the
-# FFT's generic radix)
+# block that takes the staged branch, 134.4 k (n1 = 105 = 3*5*7: the
+# FFT's generic radix), and the 4-CTA cluster's rates: 384 k (n1 = 300),
+# 313.6 k (n1 = 245 = 5*7^2: generic radix 49) and 655.36 k (n1 = 512,
+# the reference's largest)
 SPEC_CASES = ((128, 460800, 96000), (256, 460800, 192000), (13, 96000, 96000),
-              (128, 96000, 96000), (64, 134400, 134400))
-# kernel 4 alone at the card's largest n1 (CUDA_MAX_N1 = 225: n = 28800 at
-# 288 kS/s): streams, each 1 s
+              (128, 96000, 96000), (64, 134400, 134400), (32, 384000, 384000),
+              (32, 313600, 313600), (32, 655360, 655360))
+# kernel 4 alone at one CTA's largest n1 (ONE_CTA_MAX_N1 = 225: n = 28800 at
+# 288 kS/s; above it a block takes a 4-CTA cluster): streams, each 1 s
 K4_STREAMS = 32
+# the forced cluster launch against the one-CTA kernels, bit for bit
+CLUSTER_CHECK_N1 = (75, 150)
 FLAGSHIP_SHAPE = (128, 460800)      # streams x samples per 4.8 s block
 # kernel 2: (streams, matched-filter samples): the 1 s block's and the
 # flagship's (1/10 of the input rate), and twice the flagship's streams
@@ -624,48 +633,68 @@ def spec_inputs(torch, np, dev, gen, s: int, t_len: int, rate: int):
             for _ in range(3)], tone_hz
 
 
-def check_k4(torch, dev, x, n: int, rate: int, tone_hz, label: str):
-    """Kernel 4 against its plain version on ``x``: the waterfall (q =
-    wf_group_for(n)) within 2e-3 dB, peaks within 1e-3 dB and argmax
-    equal; the full PSD (q = 1, through ``spectrum_wide`` as the CLI runs
-    it) within 2e-3 dB at or above the floor and PSD_AMP_TOL of the RMS
-    amplitude (see :func:`psd_errors`), its peak within 1e-3 dB and at the
-    tone. Both against a float64 FFT of the same windowed blocks (a
-    reading). Returns (k4 = (wf, mx, idx), wf error, full-PSD errors,
-    float64 errors of the kernel and of the plain version)."""
+def check_k4(torch, dev, x, n: int, rate: int, tone_hz, label: str,
+             exact_ref: bool):
+    """Kernel 4 on ``x``: the waterfall (q = wf_group_for(n)), its peaks
+    and argmax, and the full PSD (q = 1, through ``spectrum_wide`` as the
+    CLI runs it) with its peak at the tone. The limits: waterfall within
+    2e-3 dB, peaks within 1e-3 dB, the full PSD within 2e-3 dB at or above
+    the floor and PSD_AMP_TOL of the RMS amplitude (see
+    :func:`psd_errors`); held against the plain version, or with
+    ``exact_ref`` (above one CTA's n1, where the plain version's dense
+    DFT strays further from the truth than the kernel's FFT) against a
+    float64 FFT of the same windowed blocks. The argmax equals the plain
+    version's either way. Returns (k4 = (wf, mx, idx), errors: "plain"
+    (wf, peak, full-PSD triple) against the plain version, "k64" and
+    "p64" (wf, peak, full-PSD triple) of the kernel and of the plain
+    version against float64)."""
     from jsdr_tpu_torch.ops.spectrum import spectrum_wide
     from jsdr_tpu_torch.ops.spectrum_fused import (spectrum_waterfall,
                                                    spectrum_wf_ref,
                                                    wf_group_for)
     from jsdr_tpu_torch.ops.windows import hamming
 
-    s = x.shape[0]
+    s, q = x.shape[0], wf_group_for(n)
     k4 = spectrum_waterfall(x, n)
-    p4 = spectrum_wf_ref(x, n, True, wf_group_for(n))
-    k4_err = float((k4[0] - p4[0]).abs().max())
-    need(k4_err <= 2e-3 and float((k4[1] - p4[1]).abs().max()) <= 1e-3
-         and torch.equal(k4[2], p4[2]),
-         f"spectrum_waterfall {label}: differs from plain ({k4_err} dB)")
-    del p4
+    p4 = spectrum_wf_ref(x, n, True, q)
     full = spectrum_wide(x, n, rate, natural=False)
     pf = spectrum_wf_ref(x, n, True, 1)
-    errs = psd_errors(torch, full.psd, pf[0])
-    need(errs[0] <= 2e-3 and errs[1] <= PSD_AMP_TOL,
-         f"spectrum_wide {label}: full PSD |kernel-plain| {errs[0]} dB "
-         f"at or above the floor (limit 2e-3), amplitude {errs[1]} of "
-         f"the block's RMS (limit {PSD_AMP_TOL})")
-    need(float((full.peak_db.T - pf[1]).abs().max()) <= 1e-3
-         and torch.equal(full.peak_freq, tone_hz.round().int()[:, None]
-                         .expand_as(full.peak_freq)),
-         f"spectrum_wide {label}: peaks differ from plain or the tone")
+    need(torch.equal(k4[2], p4[2]), f"spectrum_waterfall {label}: argmax "
+         "differs from plain")
+    need(torch.equal(full.peak_freq, tone_hz.round().int()[:, None]
+                     .expand_as(full.peak_freq)),
+         f"spectrum_wide {label}: peaks are not at the tones")
     z = torch.complex(x.re.double(), x.im.double()).view(s, -1, n)
     truth = 10.0 * torch.log10(torch.clamp_min(torch.fft.fft(
         z * hamming(n, device=dev).double()).abs().square()
         * (2.0 / n) ** 2, 1e-30))
+    del z
     truth = truth.view(s, -1, 128, n // 128).permute(1, 0, 3, 2)
-    vs64 = (psd_errors(torch, full.psd, truth),
-            psd_errors(torch, pf[0], truth))
-    return k4, k4_err, errs, vs64
+    t_wf = truth.reshape(*truth.shape[:2], n // 128 // q, q, 128).amax(dim=3)
+    t_mx = truth.flatten(2).amax(dim=2)
+
+    def errs(wf, mx, psd, wf_ref, mx_ref, psd_ref):
+        return (float((wf - wf_ref).abs().max()),
+                float((mx - mx_ref).abs().max()),
+                psd_errors(torch, psd, psd_ref))
+
+    e = {"plain": errs(k4[0], k4[1], full.psd, p4[0], p4[1], pf[0]),
+         "k64": errs(k4[0].double(), k4[1].double(), full.psd, t_wf, t_mx,
+                     truth),
+         "p64": errs(p4[0].double(), p4[1].double(), pf[0], t_wf, t_mx,
+                     truth)}
+    held = e["k64" if exact_ref else "plain"]
+    against = "a float64 FFT" if exact_ref else "plain"
+    need(held[0] <= 2e-3 and held[1] <= 1e-3,
+         f"spectrum_waterfall {label}: wf {held[0]} dB (limit 2e-3), peak "
+         f"{held[1]} dB (limit 1e-3) against {against}")
+    need(held[2][0] <= 2e-3 and held[2][1] <= PSD_AMP_TOL,
+         f"spectrum_wide {label}: full PSD {held[2][0]} dB at or above the "
+         f"floor (limit 2e-3), amplitude {held[2][1]} of the block's RMS "
+         f"(limit {PSD_AMP_TOL}) against {against}")
+    need(float((full.peak_db.T - k4[1]).abs().max()) == 0.0,
+         f"spectrum_wide {label}: q = 1 and q = {q} peaks differ")
+    return k4, e
 
 
 def time_spectrum(torch, dev, inputs, n: int, q: int, with_k3: bool):
@@ -694,13 +723,24 @@ def time_spectrum(torch, dev, inputs, n: int, q: int, with_k3: bool):
     return ms3, plain3, ms4, plain4, fft_ms
 
 
+def decimation_for(n: int, rate: int) -> int:
+    """The front end's decimation m for kernel 3 at ``rate``: rate // 9600
+    (the telemetry chain's rule), or the largest divisor of n below it
+    where n is not a multiple (kernel 3 decimates whole FFT blocks)."""
+    return max(d for d in range(1, rate // 9600 + 1) if n % d == 0)
+
+
 def phase_spectrum_kernels(torch, np, dev, tag):
     """Phase 7: kernels 3 (merged spectrum + front end) and 4 (waterfall
-    spectrum) against their plain versions, against each other (bit for
-    bit) and kernel 3's front end against kernel 1 (bit for bit), on tones
-    over a noise floor (SPEC_CASES); kernel 4 alone at the card's largest
-    n1 (K4_STREAMS x 1 s at n1 = CUDA_MAX_N1); see :func:`check_k4`. The merged kernel's static shared
-    memory must be what ``CUDA_MAX_N1`` was derived from. Times of both
+    spectrum) on tones over a noise floor (SPEC_CASES), and kernel 4 alone
+    at one CTA's largest n1 (K4_STREAMS x 1 s at n1 = ONE_CTA_MAX_N1):
+    against their plain versions, or above one CTA's n1 (the 4-CTA
+    cluster: n1 = 245, 300, 512) against a float64 FFT with the plain
+    version's own error beside (see :func:`check_k4`); kernel 3 against
+    kernel 4 (wf, mx, idx) and kernel 1 (ds, tail), bit for bit, at every
+    shape. At n1 = 75 and 150 the cluster path, forced, must equal the
+    one-CTA kernels bit for bit. The merged kernel's static shared memory
+    must be what ``ONE_CTA_MAX_N1`` was derived from. Times of both
     kernels, their plain versions, and torch.fft.fft over the same
     windowed blocks. Returns the kernels' rows at the main paths' shapes."""
     from jsdr_tpu_torch.demod.bpsk import (DS_FILTER, HOWARD_FUDGE_FACTOR,
@@ -711,26 +751,34 @@ def phase_spectrum_kernels(torch, np, dev, tag):
     from jsdr_tpu_torch.ops.spectrum_front import (spectrum_front_fused,
                                                    spectrum_front_ref,
                                                    static_smem_bytes)
-    from jsdr_tpu_torch.ops.spectrum_fused import (CUDA_MAX_N1, STATIC_SMEM,
+    from jsdr_tpu_torch.ops.spectrum_fused import (CLUSTER, ONE_CTA_MAX_N1,
+                                                   STATIC_SMEM, cuda_ranks,
+                                                   spectrum_fused,
+                                                   spectrum_waterfall,
                                                    wf_group_for)
 
-    static = static_smem_bytes()
-    need(static <= STATIC_SMEM, f"spec_front_kernel has {static} bytes of "
-         f"static shared memory; CUDA_MAX_N1 = {CUDA_MAX_N1} assumed "
-         f"{STATIC_SMEM}")
-    print(f"spectrum kernels: {static} bytes of static shared memory in the "
-          f"merged kernel (<= {STATIC_SMEM}); CUDA_MAX_N1 = {CUDA_MAX_N1}")
+    for ranks in (1, CLUSTER):
+        static = static_smem_bytes(ranks)
+        need(static <= STATIC_SMEM, f"spec_front_kernel<{ranks}> has {static} "
+             f"bytes of static shared memory; ONE_CTA_MAX_N1 = "
+             f"{ONE_CTA_MAX_N1} assumed {STATIC_SMEM}")
+        print(f"spectrum kernels: {static} bytes of static shared memory in "
+              f"the merged kernel at {ranks} CTA(s) a block (<= "
+              f"{STATIC_SMEM}); ONE_CTA_MAX_N1 = {ONE_CTA_MAX_N1}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
     worst = {"k3": 0.0, "k4": 0.0}
     rows = {}
-    k4_rate = CUDA_MAX_N1 * 1280                       # n = rate / 10
+    cluster_done = set()
+    k4_rate = ONE_CTA_MAX_N1 * 1280                     # n = rate / 10
     cases = [(c, True) for c in SPEC_CASES] + [
         ((K4_STREAMS, k4_rate, k4_rate), False)]
     for (s, t_len, rate), with_k3 in cases:
-        n, m = rate // 10, rate // 9600
-        q = wf_group_for(n)
+        n = rate // 10
+        n1, m, q = n // 128, decimation_for(n, rate), wf_group_for(n)
+        ranks = cuda_ranks(n)
+        exact_ref = ranks > 1
         tun = (rate // 128) * (8 + np.arange(s) % 21)   # 128-periodic mixes
         tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64,
                              device=dev)
@@ -743,23 +791,28 @@ def phase_spectrum_kernels(torch, np, dev, tag):
                       torch.randn((s, 26), generator=gen, device=dev)),
                    HOWARD_FUDGE_FACTOR) for x in xs]
         x, tail = inputs[0][0], inputs[0][6]
-        label = f"S={s} T={t_len} rate={rate} (n={n}, n1={n // 128}, q={q}"
+        label = (f"S={s} T={t_len} rate={rate} (n={n}, n1={n1}, q={q}, "
+                 f"{ranks} CTA(s) a block")
         label += f", m={m})" if with_k3 else ", kernel 4 alone)"
-        k4, k4_err, (db_above, amp_err, db_any), vs64 = check_k4(
-            torch, dev, x, n, rate, tone_hz, label)
+        k4, e = check_k4(torch, dev, x, n, rate, tone_hz, label, exact_ref)
         # the argmax is the tone: natural bin of idx at the tone's bin
-        n1 = n // 128
         k_nat = n1 * (k4[2].long() % 128) + k4[2].long() // 128
         want_bin = (torch.round(tone_hz * n / rate).long() % n)[None, :]
         need(torch.equal(k_nat, want_bin.expand_as(k_nat)),
              f"{label}: the peak is not at the tone")
-        line = (f"full PSD (q=1) |k-p| {db_above:.3e} dB at or above the "
-                f"floor, {db_any:.3e} dB anywhere, amplitude {amp_err:.3e} "
-                f"of the block's RMS; against float64, kernel "
-                f"{vs64[0][0]:.3e}/{vs64[0][2]:.3e} dB, {vs64[0][1]:.3e} "
-                f"amp., plain {vs64[1][0]:.3e}/{vs64[1][2]:.3e} dB, "
-                f"{vs64[1][1]:.3e} amp.")
-        worst["k4"] = max(worst["k4"], k4_err, db_any)
+        held = "float64" if exact_ref else "plain"
+        line = (f"[limits held against {held}] kernel 4 against plain: wf "
+                f"{e['plain'][0]:.3e} dB, peak {e['plain'][1]:.3e} dB, full "
+                f"PSD (q=1) {e['plain'][2][0]:.3e} dB at or above the floor, "
+                f"{e['plain'][2][2]:.3e} dB anywhere, amplitude "
+                f"{e['plain'][2][1]:.3e} of the block's RMS; against float64, "
+                f"kernel wf {e['k64'][0]:.3e} dB, peak {e['k64'][1]:.3e} dB, "
+                f"PSD {e['k64'][2][0]:.3e}/{e['k64'][2][2]:.3e} dB, "
+                f"{e['k64'][2][1]:.3e} amp.; plain wf {e['p64'][0]:.3e} dB, "
+                f"peak {e['p64'][1]:.3e} dB, PSD {e['p64'][2][0]:.3e}/"
+                f"{e['p64'][2][2]:.3e} dB, {e['p64'][2][1]:.3e} amp.")
+        worst["k4"] = max(worst["k4"], e[("k64" if exact_ref else "plain")][0],
+                          e["plain"][2][2] if not exact_ref else 0.0)
         if with_k3:
             k3 = spectrum_front_fused(*inputs[0])
             p3 = spectrum_front_ref(*inputs[0])
@@ -768,10 +821,11 @@ def phase_spectrum_kernels(torch, np, dev, tag):
             torch.cuda.synchronize()
             wf_err = float((k3[0] - p3[0]).abs().max())
             mx_err = float((k3[1] - p3[1]).abs().max())
-            need(wf_err <= 2e-3, f"spectrum_front_fused {label}: wf "
-                 f"|kernel-plain| {wf_err} dB > 2e-3")
-            need(mx_err <= 1e-3, f"spectrum_front_fused {label}: peak "
-                 f"|kernel-plain| {mx_err} dB > 1e-3")
+            if not exact_ref:   # above, kernel 4's float64 check holds it
+                need(wf_err <= 2e-3, f"spectrum_front_fused {label}: wf "
+                     f"|kernel-plain| {wf_err} dB > 2e-3")
+                need(mx_err <= 1e-3, f"spectrum_front_fused {label}: peak "
+                     f"|kernel-plain| {mx_err} dB > 1e-3")
             need(torch.equal(k3[2], p3[2]),
                  f"spectrum_front_fused {label}: argmax differs from plain")
             scale = max(float(p3[3].re.abs().max()),
@@ -790,15 +844,36 @@ def phase_spectrum_kernels(torch, np, dev, tag):
                  and torch.equal(k3[4].re, k1[1].re)
                  and torch.equal(k3[4].im, k1[1].im),
                  f"{label}: kernel 3's ds/tail are not kernel 1's")
-            worst["k3"] = max(worst["k3"], wf_err)
-            line = (f"wf |k-p| {wf_err:.3e} dB, peak {mx_err:.3e} dB, argmax "
-                    f"equal (the tones), ds |k-p| {ds_err:.3e} (<= 1e-5 x "
-                    f"{scale:.3e}); kernel 3 == kernel 4 (wf, mx, idx) and "
-                    f"== kernel 1 (ds, tail), bit for bit; " + line)
+            worst["k3"] = max(worst["k3"],
+                              e["k64"][0] if exact_ref else wf_err)
+            line = (f"kernel 3: wf |k-p| {wf_err:.3e} dB, peak {mx_err:.3e} "
+                    f"dB, argmax equal (the tones), ds |k-p| {ds_err:.3e} "
+                    f"(<= 1e-5 x {scale:.3e}); kernel 3 == kernel 4 (wf, mx, "
+                    f"idx) and == kernel 1 (ds, tail), bit for bit; " + line)
+            if n1 in CLUSTER_CHECK_N1 and n1 not in cluster_done:
+                cluster_done.add(n1)
+                c4 = spectrum_waterfall(x, n, cluster=True)
+                cf = spectrum_fused(x, n, with_peaks=True, cluster=True)
+                of = spectrum_fused(x, n, with_peaks=True)
+                c3 = spectrum_front_fused(*inputs[0], cluster=True)
+                torch.cuda.synchronize()
+                need(all(torch.equal(a, b) for a, b in zip(c4, k4))
+                     and all(torch.equal(a, b) for a, b in zip(cf, of))
+                     and all(torch.equal(a, b) for a, b in zip(c3[:3], k3[:3]))
+                     and all(torch.equal(a.re, b.re) and torch.equal(a.im, b.im)
+                             for a, b in zip(c3[3:], k3[3:])),
+                     f"{label}: the forced 4-CTA cluster differs from one CTA")
+                xs1 = [(i[0], n) for i in inputs]
+                ms_c = time_ms(torch, lambda x_, n_: spectrum_waterfall(
+                    x_, n_, cluster=True), xs1, 10)
+                ms_1 = time_ms(torch, lambda x_, n_: spectrum_waterfall(
+                    x_, n_), xs1, 10)
+                line += (f"; forced 4-CTA cluster == one CTA (kernels 3 and "
+                         f"4, q = 1 and q = {q}), bit for bit: kernel 4 "
+                         f"{ms_c:.4f} ms as a cluster, {ms_1:.4f} ms in one "
+                         "CTA")
+                del c4, cf, of, c3
             del k3, p3, k1
-        else:
-            line = (f"wf |k-p| {k4_err:.3e} dB, peak and argmax equal (the "
-                    f"tones); " + line)
         print(f"{tag} spectrum kernels {label}: {line}")
         del k4
         ms3, plain3, ms4, plain4, fft_ms = time_spectrum(
@@ -823,6 +898,8 @@ def phase_spectrum_kernels(torch, np, dev, tag):
                               bound_by=bound4[1], library_ms=fft_ms)
         del inputs, xs, x, tail
         torch.cuda.empty_cache()
+    need(cluster_done == set(CLUSTER_CHECK_N1),
+         f"the forced cluster ran at n1 = {sorted(cluster_done)} only")
     rows["k3"]["max_abs_err"] = worst["k3"]
     rows["k4"]["max_abs_err"] = worst["k4"]
     return rows["k3"], rows["k4"]
@@ -1055,10 +1132,13 @@ def phase_mix_decimate_mf(torch, np, dev, rng, tag):
     against its plain version (the unfused chain: mf within 2e-5 of
     max|mf|, fp32 sums in other orders) and against kernel 1 on the same
     input: its ds tail equal to kernel 1's and its mf tail equal to the
-    last 64 of [mf tail ++ _vco_mix(kernel 1's output)], bit for bit.
-    Times it beside the plain version and the unfused device chain
-    (kernel 1, the VCO mix, the cuDNN matched filter). Returns the row at
-    the main path's shape (128 x 96,000)."""
+    last 64 of [mf tail ++ _vco_mix(kernel 1's output)], bit for bit; and
+    two chained half blocks (patterns rolled on by the first half, as the
+    demodulator's state advances them) equal to one whole block, bit for
+    bit, at MF_CASES. Times it (event time back to back, and its device
+    time alone, :func:`device_ms`) beside the plain version and the
+    unfused device chain (kernel 1, the VCO mix, the cuDNN matched
+    filter). Returns the row at the main path's shape (128 x 96,000)."""
     from jsdr_tpu_torch.demod.bpsk import (DM_FILTER, DS_FILTER,
                                            HOWARD_FUDGE_FACTOR, NU_SCALE,
                                            _nco_pattern, _vco_mix,
@@ -1072,14 +1152,14 @@ def phase_mix_decimate_mf(torch, np, dev, rng, tag):
     taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
     mf_taps = torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev)
     row, worst = None, 0.0
-    for s, t_len, rate in MIX_CASES:
+    for s, t_len, rate in MF_CASES:
         m = rate // 9600
 
         def rand(*shape):
             return torch.as_tensor(rng.standard_normal(shape, np.float32),
                                    device=dev)
 
-        step = 750 if rate == 96000 else 1500
+        step = rate // 128                 # pattern mode's tuning step
         tu = torch.as_tensor(tunings_to_nu(step * (8 + np.arange(s) % 21)),
                              dtype=torch.int64, device=dev)
         nu0 = torch.as_tensor(rng.integers(0, NU_SCALE * rate, s),
@@ -1126,8 +1206,33 @@ def phase_mix_decimate_mf(torch, np, dev, rng, tag):
         need(torch.equal(k[2].re, want[0]) and torch.equal(k[2].im, want[1]),
              f"mix_decimate_mf {label}: mf tail is not the VCO mix of "
              "kernel 1's output")
+        # two chained half blocks against the whole block
+        half, hd = t_len // 2, t_len // 2 // m
+        x = a[0]
+
+        def roll(pat, by):
+            return torch.roll(pat, -(by % 128), dims=1).contiguous()
+
+        ka = mix_decimate_mf(CF(x.re[:, :half].contiguous(),
+                                x.im[:, :half].contiguous()), *a[1:])
+        kb = mix_decimate_mf(CF(x.re[:, half:].contiguous(),
+                                x.im[:, half:].contiguous()),
+                             roll(a[1], half), roll(a[2], half), a[3], m,
+                             ka[1], roll(a[6], hd), roll(a[7], hd), a[8],
+                             ka[2], a[10])
+        torch.cuda.synchronize()
+        need(all(torch.equal(torch.cat([getattr(ka[0], c),
+                                        getattr(kb[0], c)], dim=1),
+                             getattr(k[0], c))
+                 and torch.equal(getattr(kb[1], c), getattr(k[1], c))
+                 and torch.equal(getattr(kb[2], c), getattr(k[2], c))
+                 for c in ("re", "im")),
+             f"mix_decimate_mf {label}: two chained half blocks differ from "
+             "one whole block")
+        del ka, kb
         worst = max(worst, err)
         ms = time_ms(torch, mix_decimate_mf, inputs, 20)
+        dev_ms = device_ms(torch, mix_decimate_mf, inputs, 20)
         plain_ms = time_ms(torch, mix_decimate_mf_ref, inputs, 5)
         chain_ms = time_ms(torch, unfused, inputs, 10)
         flops = (2.0 * s * t_len
@@ -1140,7 +1245,9 @@ def phase_mix_decimate_mf(torch, np, dev, rng, tag):
         print(f"{tag} mix_decimate_mf {label}: max|k-p| {err:.3e} (<= 2e-5 x "
               f"{scale:.3e}), mf tail {mt_err:.3e}; ds tail == kernel 1's "
               f"and mf tail == VCO mix of kernel 1's output, bit for bit; "
-              f"kernel {ms:.4f} ms ({gbs:.0f} GB/s), plain {plain_ms:.4f} "
+              f"two chained half blocks == one block, bit for bit; kernel "
+              f"{ms:.4f} ms ({gbs:.0f} GB/s; device time {dev_ms:.4f} ms, "
+              f"{nbytes / dev_ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} "
               f"ms, unfused device chain {chain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}")
         if (s, t_len) == MAIN_SHAPE:

@@ -40,14 +40,14 @@ _SIGNATURES = {
     "jsdr_timing_recover": [_P] * 14 + [_I, _I, _I, _F, _F, _F, _F, _F, _P],
     # xr, xi, win, the plan (passes, ptwr, ptwi, perm, gwr, gwi, s2r, s2i,
     # k2map), twr, twi, wf, mx, idx, n_streams, t_len, n1, q, n_pass, rg,
-    # cf, stream
-    "jsdr_spectrum_wf": [_P] * 17 + [_I] * 6 + [_F, _P],
+    # cf, ranks, stream
+    "jsdr_spectrum_wf": [_P] * 17 + [_I] * 6 + [_F, _I, _P],
     # xr, xi, win, the plan, twr, twi, cos, sin, taps, tail_r, tail_i, wf,
     # mx, idx, yr, yi, ntail_r, ntail_i, n_streams, t_len, n1, q, n_pass,
-    # rg, cf, m, gain, stream
-    "jsdr_spec_front": [_P] * 26 + [_I] * 6 + [_F, _I, _F, _P],
-    # bytes (int*)
-    "jsdr_spec_front_static_smem": [_P],
+    # rg, cf, m, gain, ranks, stream
+    "jsdr_spec_front": [_P] * 26 + [_I] * 6 + [_F, _I, _F, _I, _P],
+    # ranks, bytes (int*)
+    "jsdr_spec_front_static_smem": [_I, _P],
     # re, im, db, line, n_rows, n, width, cf, stream
     "jsdr_psd_waterfall": [_P] * 4 + [_I, _I, _I, _F, _P],
     # xr, xi, cos, sin, taps, tail_r, tail_i, vco_cos, vco_sin, mf_taps,

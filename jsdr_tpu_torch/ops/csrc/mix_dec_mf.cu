@@ -8,28 +8,52 @@
 //   bb[k]  = (ds_re[k] * vco_cos[s, k % 128], ds_im[k] * vco_sin[s, k % 128])
 // (the reference's non-complex VCO mix; the pattern phase is block-relative)
 // and the matched filter over the carried 64-sample vco-mixed history,
-//   mf[k]  = sum_{a<65} bbp[k + 64 - a] * mf_taps[a],  bbp = [mf_tail ++ bb].
-// The new ds tail is the last 26 mixed input samples (kernel 1's tail
-// kernel), the new mf tail the last 64 samples of bbp. The decimated stream
-// never reaches device memory.
+//   mf[k]  = sum_{a<65} bbp[k + 64 - a] * mf_taps[a],  bbp = [mf_tail ++ bb],
+// one fmaf per tap in order a = 0..64. The new ds tail is the last 26 mixed
+// input samples (kernel 1's tail kernel), the new mf tail the last 64
+// samples of bbp. The decimated stream never reaches device memory.
 //
 // What bounds it on this card: device memory, as for kernel 1. Each input
 // sample is 8 bytes in for (27*2 + 2 + 65*2)/m flops; each output 8 bytes
 // out. At 128 streams x 96000 samples that is ~108 MB per 1 s block, about
 // 0.032 ms at 3.35 TB/s, against ~0.5 GFLOP.
 //
-// Design: one CTA per (stream, tile of 256 matched-filter outputs). Blocks
-// run in no order, so a CTA cannot inherit the matched filter's halo from
-// the previous tile as the TPU kernel's sequential grid did (its scratch
-// carried it). Each CTA recomputes instead: it stages the input span of the
-// 64 decimated samples before its tile plus its own 256 (mixing on the way
-// in; the halo's re-read hits L2), forms those 320 decimated samples with
-// kernel 1's 27-FMA routine, VCO-multiplies them into shared memory, and
-// then each thread forms one output from 65 shared-memory FMAs in order
-// a = 0..64. Only the first tile reads the carried mf tail; the last tile
-// writes the new one from shared memory. The recomputation costs 64*m more
-// input reads and 64 more decimated samples per 256 outputs (25%).
+// Design: one CTA of 256 threads walks a span of one stream's outputs
+// (spans sized on the host so that one wave of CTAs fills the card) in
+// sub-chunks of 256 decimated samples, and runs the matched filter every
+// 1024 of them (one pass). Shared memory traffic, not arithmetic, is what
+// the design spends carefully:
+//   * input: each sub-chunk's samples (and the 26/m columns of FIR halo
+//     before it, re-read from L2) are loaded into registers one sub-chunk
+//     ahead of the one being computed, so the DRAM read overlaps the FIR
+//     and the matched filter; then mixed (a thread's samples are 256
+//     apart, so one pattern entry serves all of them) and stored into a
+//     polyphase layout, sample j of the sub-chunk at row j % m, column
+//     j / m, in the other of two buffers.
+//   * FIR: one decimated sample a thread; tap a of every lane reads one
+//     row at consecutive columns (no bank conflicts at any m); the taps
+//     live in registers. The same fir_output chain as kernels 1 and 3.
+//   * VCO mix into bb, stored by position p at row p % 4, column p / 4
+//     (rows 296 words apart).
+//   * matched filter: thread t forms the 4 consecutive outputs at
+//     positions 64 + 4t .. 64 + 4t + 3 from a sliding window in registers:
+//     per tap one new bb sample (lanes on consecutive columns of one row)
+//     and one broadcast tap read for 4 outputs, 195/4 reads an output
+//     instead of 195.
+//   * the 64-sample matched-filter halo is carried in bb from pass to pass
+//     (the stream's first span starts from the carried mf tail; a later
+//     span recomputes the 64 decimated samples before it, once).
+// A second small launch writes the new ds tail, as mix_decimate.cu does.
+// m = 10 and 20 (96 and 192 kS/s) are compiled with m fixed, so every
+// tap's shared-memory offset is a constant: 2.7x and 1.9x faster there
+// than the same code with m at run time (tools/mf_probe.py on an H100).
+// Any other m takes that code, and sub-chunks shrink (to 8) as m grows so
+// a thread stages at most kMaxPer samples a plane.
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "fir_mix.cuh"
 
@@ -38,17 +62,53 @@ namespace {
 using jsdr_fir::kHalo;
 using jsdr_fir::kPeriod;
 using jsdr_fir::kTaps;
+constexpr int kThreads = 256;
 constexpr int kMfTaps = 65;
 constexpr int kMfHalo = kMfTaps - 1;
-constexpr int kOutPerCta = 256;
-constexpr int kDsPerCta = kOutPerCta + kMfHalo;
+constexpr int kR = 4;                        // matched-filter outputs a thread
+constexpr int kPass = kThreads * kR;         // outputs a matched-filter pass
+// bb columns: (64 + 1024) / 4 = 272, padded to 8 mod 32 so the FIR's
+// stores of 32 consecutive positions (4 rows x 8 columns) hit 32 banks
+constexpr int kBbCols = 296;
+constexpr int kMinSpan = 512;                // outputs; bounds the halo's share
+constexpr int kMaxPer = 21;  // input samples a thread stages a plane
+static_assert(kPass % kThreads == 0, "sub-chunks divide a pass");
+static_assert((kMfHalo + kPass) / kR <= kBbCols && kBbCols % 32 == 8,
+              "bb layout");
 
-// input samples staged per plane for kDsPerCta decimated outputs
-__host__ __device__ constexpr int staged(int m) {
-  return (kDsPerCta - 1) * m + kTaps;
+// Words of one input row: the sub-chunk's columns and 26/m halo columns,
+// odd (fewer bank conflicts on the staged samples' scattered stores).
+__host__ __device__ constexpr int row_words(int sub, int m) {
+  return (sub + kHalo / m) | 1;
 }
 
-__global__ void __launch_bounds__(kOutPerCta)
+__host__ constexpr size_t smem_bytes(int sub, int m) {
+  return sizeof(float) * (2 * 2 * static_cast<size_t>(m) * row_words(sub, m) +
+                          2 * kR * kBbCols);
+}
+
+// Input samples a thread stages a plane and sub-chunk of kThreads outputs
+// at a fixed m (kMaxPer at run-time m).
+template <int kM>
+__host__ __device__ constexpr int per_thread() {
+  return kM > 0 ? ((kThreads + kHalo / kM) * kM + kThreads - 1) / kThreads
+                : kMaxPer;
+}
+static_assert(per_thread<10>() <= kMaxPer && per_thread<20>() <= kMaxPer,
+              "staging registers");
+
+// bb position p (p >= 0) of a plane
+__device__ __forceinline__ int bb_word(int p) {
+  return (p % kR) * kBbCols + p / kR;
+}
+
+// kM: the decimation, fixed at compile time (10, 20), or 0 for m at run
+// time (then sub_arg is the sub-chunk; with kM fixed it is 256). Two CTAs
+// an SM: at m = 20 ptxas would take 168 registers (one CTA an SM); capped
+// at 128 it runs 0.070 -> 0.055 ms at 64 x 192,000, m = 10 unchanged
+// (tools/mf_probe.py on an H100).
+template <int kM>
+__global__ void __launch_bounds__(kThreads, 2)
 mix_dec_mf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   const float* __restrict__ cos_pat,
                   const float* __restrict__ sin_pat,
@@ -61,78 +121,244 @@ mix_dec_mf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   const float* __restrict__ mtail_r,
                   const float* __restrict__ mtail_i, float* __restrict__ yr,
                   float* __restrict__ yi, float* __restrict__ nmtail_r,
-                  float* __restrict__ nmtail_i, int t_len, int m, float gain) {
-  extern __shared__ float smem[];
-  __shared__ float tp[kTaps];
+                  float* __restrict__ nmtail_i, int t_len, int m_arg,
+                  int sub_arg, int span, float gain) {
+  extern __shared__ float4 smem4[];
+  __shared__ float cs[kPeriod], sn[kPeriod], vc[kPeriod], vs[kPeriod];
   __shared__ float mt[kMfTaps];
-  // bb of decimated samples k0 - 64 .. k0 + n_here - 1 (k < 0: mf tail)
-  __shared__ float br[kDsPerCta];
-  __shared__ float bi[kDsPerCta];
+  const int m = kM > 0 ? kM : m_arg;
+  const int sub = kM > 0 ? kThreads : sub_arg;
+  const int h = kHalo / m;             // FIR halo columns before a sub-chunk
+  const int wp = row_words(sub, m);
+  const int plane = m * wp;
+  float* in = reinterpret_cast<float*>(smem4);  // [2 buffers][re, im][m][wp]
+  float* bbr = in + 4 * plane;                  // [kR][kBbCols]
+  float* bbi = bbr + kR * kBbCols;
+  const int tid = threadIdx.x;
   const int s = blockIdx.y;
   const int n_out = t_len / m;
-  const int k0 = blockIdx.x * kOutPerCta;
-  const int n_here = min(kOutPerCta, n_out - k0);
-  const int kf = max(k0 - kMfHalo, 0);  // first decimated sample computed
-  // wr[j] holds mixed input sample t = base + j (t < 0: the carried tail)
-  const int base = kf * m + m - kTaps;
-  const int span = (k0 + n_here - 1 - kf) * m + kTaps;
-  float* wr = smem;
-  float* wi = smem + staged(m);
+  const int k_s = blockIdx.x * span;            // this CTA's outputs
+  const int k_e = min(k_s + span, n_out);
+  // the first decimated sample it computes: a later span starts 64 early
+  const int ds0 = k_s == 0 ? 0 : k_s - kMfHalo;
+  const int n_sub = (k_e - ds0 + sub - 1) / sub;
   const long long row = static_cast<long long>(s) * t_len;
-  const float* cs = cos_pat + s * kPeriod;
-  const float* sn = sin_pat + s * kPeriod;
 
-  if (threadIdx.x < kTaps) tp[threadIdx.x] = taps[threadIdx.x];
-  if (threadIdx.x < kMfTaps) mt[threadIdx.x] = mf_taps[threadIdx.x];
-  for (int j = threadIdx.x; j < span; j += blockDim.x) {
-    const int t = base + j;
-    if (t < 0) {
-      wr[j] = tail_r[s * kHalo + kHalo + t];
-      wi[j] = tail_i[s * kHalo + kHalo + t];
-    } else {
-      const int p = t & (kPeriod - 1);
-      wr[j] = __fmul_rn(xr[row + t], cs[p]);
-      wi[j] = __fmul_rn(xi[row + t], sn[p]);
-    }
+  if (tid < kPeriod) {
+    cs[tid] = cos_pat[s * kPeriod + tid];
+    sn[tid] = sin_pat[s * kPeriod + tid];
+    vc[tid] = vco_cos[s * kPeriod + tid];
+    vs[tid] = vco_sin[s * kPeriod + tid];
   }
-  __syncthreads();
-
-  // decimate (kernel 1's arithmetic) and VCO-mix into br/bi
-  for (int j = threadIdx.x; j < n_here + kMfHalo; j += blockDim.x) {
-    const int k = k0 - kMfHalo + j;
-    if (k < 0) {
-      br[j] = mtail_r[s * kMfHalo + kMfHalo + k];
-      bi[j] = mtail_i[s * kMfHalo + kMfHalo + k];
-    } else {
-      const float* pr = wr + (k - kf) * m + kHalo;
-      const float* pi = wi + (k - kf) * m + kHalo;
-      const float2 y = jsdr_fir::fir_output(
-          [&](int a) { return make_float2(pr[-a], pi[-a]); }, tp, gain);
-      const int p = k & (kPeriod - 1);
-      br[j] = __fmul_rn(y.x, vco_cos[s * kPeriod + p]);
-      bi[j] = __fmul_rn(y.y, vco_sin[s * kPeriod + p]);
-    }
+  if (tid < kMfTaps) mt[tid] = mf_taps[tid];
+  if (k_s == 0 && tid < kMfHalo) {  // bbp's carried history
+    bbr[bb_word(tid)] = mtail_r[s * kMfHalo + tid];
+    bbi[bb_word(tid)] = mtail_i[s * kMfHalo + tid];
   }
-  __syncthreads();
-
-  const int o = threadIdx.x;
-  if (o < n_here) {
-    float ar = 0.f, ai = 0.f;
+  float tp[kTaps];
 #pragma unroll
-    for (int a = 0; a < kMfTaps; ++a) {
-      ar = fmaf(br[o + kMfHalo - a], mt[a], ar);
-      ai = fmaf(bi[o + kMfHalo - a], mt[a], ai);
+  for (int a = 0; a < kTaps; ++a) tp[a] = __ldg(taps + a);
+
+  // Sub-chunk c holds decimated samples k_c .. k_c + n - 1 (k_c = ds0 +
+  // c * sub); its input is samples t = (k_c - h) * m + j, j < (h + n) * m.
+  // Thread tid loads j = tid + kThreads * i into registers, then mixes
+  // and stores them at word (j % m) * wp + j / m of buffer c & 1.
+  constexpr int kPer = per_thread<kM>();
+  float ur[kPer], ui[kPer];
+  auto load = [&](int c) {
+    const int k_c = ds0 + c * sub;
+    const int t0 = (k_c - h) * m;
+    const int cnt = (h + min(sub, k_e - k_c)) * m;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = tid + kThreads * i;
+      if (j < cnt && t0 + j >= 0) {
+        ur[i] = __ldg(xr + row + t0 + j);
+        ui[i] = __ldg(xi + row + t0 + j);
+      }
     }
-    const long long out = static_cast<long long>(s) * n_out + k0 + o;
-    yr[out] = ar;
-    yi[out] = ai;
-  }
-  if (k0 + n_here == n_out) {  // the last tile: bbp's last 64 samples
-    for (int j = threadIdx.x; j < kMfHalo; j += blockDim.x) {
-      nmtail_r[s * kMfHalo + j] = br[n_here + j];
-      nmtail_i[s * kMfHalo + j] = bi[n_here + j];
+  };
+  // t < 0: the carried tail, already mixed (h * m <= 26, so t >= -26);
+  // else the pattern entry (t0 + tid) & 127 (j steps by a multiple of 128)
+  auto store = [&](int c) {
+    const int k_c = ds0 + c * sub;
+    const int t0 = (k_c - h) * m;
+    const int cnt = (h + min(sub, k_e - k_c)) * m;
+    float* br = in + (c & 1) * 2 * plane;
+    float* bi = br + plane;
+    const int p = (t0 + tid) & (kPeriod - 1);
+    const float cr = cs[p], ci = sn[p];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = tid + kThreads * i;
+      if (j < cnt) {
+        const int w = (j % m) * wp + j / m;
+        const int t = t0 + j;
+        if (t >= 0) {
+          br[w] = __fmul_rn(ur[i], cr);
+          bi[w] = __fmul_rn(ui[i], ci);
+        } else {
+          br[w] = tail_r[s * kHalo + kHalo + t];
+          bi[w] = tail_i[s * kHalo + kHalo + t];
+        }
+      }
     }
+  };
+
+  load(0);
+  __syncthreads();  // the patterns are in place
+  store(0);
+  __syncthreads();
+  for (int c = 0; c < n_sub; ++c) {
+    const int k_c = ds0 + c * sub;
+    const int n = min(sub, k_e - k_c);
+    if (c + 1 < n_sub) load(c + 1);  // in flight while c computes
+    const float* br = in + (c & 1) * 2 * plane;
+    const float* bi = br + plane;
+
+    // ---- decimate (kernel 1's arithmetic) and VCO-mix into bb
+    const int k_m = ds0 + (c * sub / kPass) * kPass;  // this pass's first
+    const int n_m = min(kPass, k_e - k_m);
+    if (tid < n) {
+      const int k = k_c + tid;
+      // tap a meets j = (tid + h + 1) * m - 1 - a: row (m - 1 - a) mod m,
+      // column tid + h + floor((m - 1 - a) / m) (>= tid: h = 26 / m)
+      const float2 y = jsdr_fir::fir_output(
+          [&](int a) {
+            const int e = m - 1 - a;
+            const int q = (e % m + m) % m;
+            const int w = q * wp + tid + h + (e - q) / m;
+            return make_float2(br[w], bi[w]);
+          },
+          tp, gain);
+      const int p = k & (kPeriod - 1);
+      const int at = bb_word(kMfHalo + k - k_m);
+      bbr[at] = __fmul_rn(y.x, vc[p]);
+      bbi[at] = __fmul_rn(y.y, vs[p]);
+    }
+
+    // ---- the pass's last sub-chunk: the matched filter over its bb
+    if (k_c + n == k_m + n_m) {
+      __syncthreads();
+      // outputs at positions p0 + u (u < kR), p0 = 64 + kR * tid: column
+      // c0 = p0 / kR of row u; tap a's new sample p0 - a sits at row
+      // (-a) mod kR, column c0 - ceil(a / kR)
+      const int c0 = kMfHalo / kR + tid;
+      float wr[kR], wi[kR], ar[kR], ai[kR];
+#pragma unroll
+      for (int u = 0; u < kR; ++u) {
+        wr[u] = bbr[u * kBbCols + c0];
+        wi[u] = bbi[u * kBbCols + c0];
+        ar[u] = 0.f;
+        ai[u] = 0.f;
+      }
+#pragma unroll
+      for (int a = 0; a < kMfTaps; ++a) {
+        if (a > 0) {
+#pragma unroll
+          for (int u = kR - 1; u > 0; --u) {
+            wr[u] = wr[u - 1];
+            wi[u] = wi[u - 1];
+          }
+          const int w = ((kR - a % kR) % kR) * kBbCols + c0 - (a + kR - 1) / kR;
+          wr[0] = bbr[w];
+          wi[0] = bbi[w];
+        }
+        const float t = mt[a];
+#pragma unroll
+        for (int u = 0; u < kR; ++u) {
+          ar[u] = fmaf(wr[u], t, ar[u]);
+          ai[u] = fmaf(wi[u], t, ai[u]);
+        }
+      }
+      const long long out = static_cast<long long>(s) * n_out;
+#pragma unroll
+      for (int u = 0; u < kR; ++u) {
+        const int k = k_m + kR * tid + u;
+        if (k >= k_s && k < k_m + n_m) {
+          yr[out + k] = ar[u];
+          yi[out + k] = ai[u];
+        }
+      }
+      if (k_m + n_m == n_out && tid < kMfHalo) {  // bbp's last 64 samples
+        nmtail_r[s * kMfHalo + tid] = bbr[bb_word(n_m + tid)];
+        nmtail_i[s * kMfHalo + tid] = bbi[bb_word(n_m + tid)];
+      }
+      __syncthreads();
+      if (k_m + n_m < k_e && tid < kMfHalo) {  // carry the halo
+        bbr[bb_word(tid)] = bbr[bb_word(n_m + tid)];
+        bbi[bb_word(tid)] = bbi[bb_word(n_m + tid)];
+      }
+    }
+    if (c + 1 < n_sub) store(c + 1);  // buffer (c + 1) & 1: c - 1 is done
+    __syncthreads();
   }
+}
+
+// The CTAs of one wave of mix_dec_mf_kernel<kM> with smem bytes of shared
+// memory on the current device. Worked out once per (device, smem) and
+// kept, so a launch makes no query; the shared-memory attribute is set to
+// smem_cap (the most any m takes) once with it.
+template <int kM>
+cudaError_t wave_ctas(size_t smem, size_t smem_cap, int* ctas) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> known;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find({dev, smem});
+  if (it == known.end()) {
+    int n_sm = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(mix_dec_mf_kernel<kM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_cap));
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mix_dec_mf_kernel<kM>, kThreads, smem);
+    if (e != cudaSuccess) return e;
+    it = known.emplace(std::make_pair(dev, smem), n_sm * max(per_sm, 1))
+             .first;
+  }
+  *ctas = it->second;
+  return cudaSuccess;
+}
+
+template <int kM>
+cudaError_t launch(const float* xr, const float* xi, const float* cos_pat,
+                   const float* sin_pat, const float* taps,
+                   const float* tail_r, const float* tail_i,
+                   const float* vco_cos, const float* vco_sin,
+                   const float* mf_taps, const float* mtail_r,
+                   const float* mtail_i, float* yr, float* yi,
+                   float* nmtail_r, float* nmtail_i, int n_streams, int t_len,
+                   int m, float gain, cudaStream_t st) {
+  int sub = kThreads;
+  if (kM == 0)
+    while (sub > 8 && (sub + kHalo / m) * m > kMaxPer * kThreads) sub /= 2;
+  if ((sub + kHalo / m) * m > per_thread<kM>() * kThreads)
+    return cudaErrorInvalidValue;  // m > 672
+  const size_t smem = smem_bytes(sub, m);
+  // m * row_words <= per_thread * kThreads + m, m <= 672
+  const size_t cap = kM > 0 ? smem
+                            : sizeof(float) * (4 * (kMaxPer * kThreads + 672) +
+                                               2 * kR * kBbCols);
+  // spans: one wave of CTAs over the card, none shorter than kMinSpan
+  int ctas = 0;
+  cudaError_t e = wave_ctas<kM>(smem, cap, &ctas);
+  if (e != cudaSuccess) return e;
+  const int n_out = t_len / m;
+  const int spans = max(1, ctas / n_streams);
+  const int span =
+      max(kMinSpan, ((n_out + spans - 1) / spans + 31) / 32 * 32);
+  const dim3 grid((n_out + span - 1) / span, n_streams);
+  mix_dec_mf_kernel<kM><<<grid, kThreads, smem, st>>>(
+      xr, xi, cos_pat, sin_pat, taps, tail_r, tail_i, vco_cos, vco_sin,
+      mf_taps, mtail_r, mtail_i, yr, yi, nmtail_r, nmtail_i, t_len, m, sub,
+      span, gain);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -146,26 +372,22 @@ extern "C" int jsdr_mix_dec_mf(
     float* nmtail_i, int n_streams, int t_len, int m, float gain,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_out = t_len / m;
-  if (n_out > 0) {
-    const size_t smem = 2 * staged(m) * sizeof(float);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          mix_dec_mf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    const dim3 grid((n_out + kOutPerCta - 1) / kOutPerCta, n_streams);
-    mix_dec_mf_kernel<<<grid, kOutPerCta, smem, st>>>(
-        xr, xi, cos_pat, sin_pat, taps, tail_r, tail_i, vco_cos, vco_sin,
-        mf_taps, mtail_r, mtail_i, yr, yi, nmtail_r, nmtail_i, t_len, m,
-        gain);
+  cudaError_t e = cudaSuccess;
+  if (t_len / m > 0) {
+    decltype(&launch<0>) go =
+        m == 10 ? &launch<10> : m == 20 ? &launch<20> : &launch<0>;
+    e = go(xr, xi, cos_pat, sin_pat, taps, tail_r, tail_i, vco_cos, vco_sin,
+           mf_taps, mtail_r, mtail_i, yr, yi, nmtail_r, nmtail_i, n_streams,
+           t_len, m, gain, st);
   } else {  // no output: the mf history carries over unchanged
-    const size_t bytes = static_cast<size_t>(n_streams) * kMfHalo * sizeof(float);
-    cudaMemcpyAsync(nmtail_r, mtail_r, bytes, cudaMemcpyDeviceToDevice, st);
-    cudaMemcpyAsync(nmtail_i, mtail_i, bytes, cudaMemcpyDeviceToDevice, st);
+    const size_t bytes =
+        static_cast<size_t>(n_streams) * kMfHalo * sizeof(float);
+    e = cudaMemcpyAsync(nmtail_r, mtail_r, bytes, cudaMemcpyDeviceToDevice,
+                        st);
+    if (e == cudaSuccess)
+      e = cudaMemcpyAsync(nmtail_i, mtail_i, bytes, cudaMemcpyDeviceToDevice,
+                          st);
   }
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(jsdr_fir::launch_mix_tail(
       xr, xi, cos_pat, sin_pat, tail_r, tail_i, ntail_r, ntail_i, n_streams,

@@ -17,18 +17,22 @@
 // come on top of the read. The merge saves the second read of the input
 // that the staged pair makes (~0.14 ms at that shape).
 //
-// Design: one CTA per (FFT block, stream), n = 960 * m samples. The CTA
-// copies its block's raw samples into shared memory, plus the 26 mixed
-// samples before it (from the previous block's input, or the carried tail
-// for block 0). It forms the block's n/m decimated outputs from shared
-// memory, mixing each sample as the FIR meets it (pattern phase t % 128,
-// block-relative as in mix_decimate.cu; n is a multiple of 128), then
-// windows the block in place and runs the spectrum body (a factored FFT
-// in shared memory, planned by jsdr_tpu_torch/ops/fft_plan.py). A second
-// small launch writes the new tail, as mix_decimate.cu does. The TPU
-// kernel's grid geometry (sf_geometry: 4 or 2 FFT blocks and 3 FIR
-// sub-chunks per grid step, sized for VMEM) is not needed: each CTA owns
-// one FFT block.
+// Design: one CTA per (FFT block, stream), n = 960 * m samples, for
+// n1 <= 225; above, a cluster of 4 CTAs per (FFT block, stream), each
+// holding 32 columns of every row (spectrum_body.cuh). A CTA copies its
+// share of the block's raw samples into shared memory, plus the 26 mixed
+// samples before the block (from the previous block's input, or the
+// carried tail for block 0). It forms its share of the block's n/m
+// decimated outputs, mixing each sample as the FIR meets it (pattern phase
+// t % 128, block-relative as in mix_decimate.cu; n is a multiple of 128):
+// one CTA reads the samples from shared memory, a cluster's rank reads
+// them from device memory (the block is L2-hot by then; a rank's columns
+// do not hold an output's 27 consecutive samples). Then it windows its
+// columns in place and runs the spectrum body (a factored FFT in shared
+// memory, planned by jsdr_tpu_torch/ops/fft_plan.py). A second small
+// launch writes the new tail, as mix_decimate.cu does. The TPU kernel's
+// grid geometry (sf_geometry: 4 or 2 FFT blocks and 3 FIR sub-chunks per
+// grid step, sized for VMEM) is not needed.
 #include <cuda_runtime.h>
 
 #include "fir_mix.cuh"
@@ -41,6 +45,7 @@ using jsdr_fir::kPeriod;
 using jsdr_fir::kTaps;
 using jsdr_spec::kThreads;
 
+template <int kRanks>
 __global__ void __launch_bounds__(kThreads)
 spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   const float* __restrict__ win, jsdr_spec::Plan pl,
@@ -59,16 +64,19 @@ spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __shared__ float hr[kHalo], hi[kHalo];
   float* ar = reinterpret_cast<float*>(smem4);
   const int n = n1 * jsdr_spec::kN2;
-  float* ai = ar + n;
-  const int b = blockIdx.x;
+  const int words = n / kRanks;  // this CTA's share of the block
+  float* ai = ar + words;
+  const int rank = jsdr_spec::block_rank<kRanks>();
+  const int b = blockIdx.x / kRanks;
   const int s = blockIdx.y;
   const long long row = static_cast<long long>(s) * t_len;
   const long long at = row + static_cast<long long>(b) * n;
 
-  // ---- raw block, taps, pattern, and the 26 mixed samples before it
-  for (int t = threadIdx.x; t < n; t += kThreads) {
-    ar[t] = xr[at + t];
-    ai[t] = xi[at + t];
+  // ---- raw columns, taps, pattern, and the 26 mixed samples before it
+  for (int w = threadIdx.x; w < words; w += kThreads) {
+    const int t = jsdr_spec::block_sample<kRanks>(w, rank);
+    ar[w] = xr[at + t];
+    ai[w] = xi[at + t];
   }
   if (threadIdx.x < kTaps) tp[threadIdx.x] = taps[threadIdx.x];
   if (threadIdx.x < kPeriod) {
@@ -89,18 +97,27 @@ spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
   __syncthreads();
 
-  // ---- tuner mix + decimating FIR: this block's n/m outputs
+  // ---- tuner mix + decimating FIR: this CTA's share of the n/m outputs
   const int n_out = n / m;
   const long long out0 = static_cast<long long>(s) * (t_len / m) +
                          static_cast<long long>(b) * n_out;
-  for (int o = threadIdx.x; o < n_out; o += kThreads) {
+  for (int o = rank * kThreads + threadIdx.x; o < n_out;
+       o += kRanks * kThreads) {
     const int last = o * m + m - 1;  // block-relative sample of tap 0
     const float2 y = jsdr_fir::fir_output(
         [&](int a) {
           const int u = last - a;
           if (u < 0) return make_float2(hr[kHalo + u], hi[kHalo + u]);
           const int p = u & (kPeriod - 1);
-          return make_float2(__fmul_rn(ar[u], cs[p]), __fmul_rn(ai[u], sn[p]));
+          float vr, vi;
+          if constexpr (kRanks == 1) {
+            vr = ar[u];
+            vi = ai[u];
+          } else {
+            vr = __ldg(xr + at + u);
+            vi = __ldg(xi + at + u);
+          }
+          return make_float2(__fmul_rn(vr, cs[p]), __fmul_rn(vi, sn[p]));
         },
         tp, gain);
     yr[out0 + o] = y.x;
@@ -109,20 +126,22 @@ spec_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __syncthreads();
 
   // ---- window in place, then the spectrum
-  for (int t = threadIdx.x; t < n; t += kThreads) {
-    const float w = win[t];
-    ar[t] = __fmul_rn(ar[t], w);
-    ai[t] = __fmul_rn(ai[t], w);
+  for (int w = threadIdx.x; w < words; w += kThreads) {
+    const float wv = win[jsdr_spec::block_sample<kRanks>(w, rank)];
+    ar[w] = __fmul_rn(ar[w], wv);
+    ai[w] = __fmul_rn(ai[w], wv);
   }
   __syncthreads();
   const long long line = static_cast<long long>(b) * n_streams + s;
-  jsdr_spec::spectrum_body(ar, ai, n1, q, cf, pl,
-                           wf + line * (n1 / q) * jsdr_spec::kN2, mx + line,
-                           idx + line);
+  jsdr_spec::spectrum_body<kRanks>(ar, ai, n1, q, cf, pl,
+                                   wf + line * (n1 / q) * jsdr_spec::kN2,
+                                   mx + line, idx + line);
 }
 
 }  // namespace
 
+// ranks: 1 (one CTA a block) or 4 (a cluster a block); the wrapper picks 4
+// above n1 = 225 (jsdr_tpu_torch/ops/spectrum_fused.py::cuda_ranks).
 extern "C" int jsdr_spec_front(
     const float* xr, const float* xi, const float* win, const int* passes,
     const float* ptwr, const float* ptwi, const int* perm, const float* gwr,
@@ -131,21 +150,24 @@ extern "C" int jsdr_spec_front(
     const float* sin_pat, const float* taps, const float* tail_r,
     const float* tail_i, float* wf, float* mx, int* idx, float* yr, float* yi,
     float* ntail_r, float* ntail_i, int n_streams, int t_len, int n1, int q,
-    int n_pass, int rg, float cf, int m, float gain, void* stream) {
+    int n_pass, int rg, float cf, int m, float gain, int ranks,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = t_len / (n1 * jsdr_spec::kN2);
   if (nblk > 0 && n_streams > 0) {
-    const size_t smem = jsdr_spec::smem_bytes(n1);
-    cudaError_t e = cudaFuncSetAttribute(
-        spec_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
     const jsdr_spec::Plan pl{passes, ptwr, ptwi, perm, gwr, gwi, s2r,
                              s2i,    k2map, twr,  twi,  n_pass, rg};
-    spec_front_kernel<<<dim3(nblk, n_streams), kThreads, smem, st>>>(
-        xr, xi, win, pl, cos_pat, sin_pat, taps, tail_r, tail_i, wf, mx, idx,
-        yr, yi, n_streams, t_len, n1, q, cf, m, gain);
-    e = cudaGetLastError();
+    cudaError_t e = cudaErrorInvalidValue;
+    if (ranks == 1)
+      e = jsdr_spec::launch_blocks<1>(
+          spec_front_kernel<1>, nblk, n_streams, n1, st, xr, xi, win, pl,
+          cos_pat, sin_pat, taps, tail_r, tail_i, wf, mx, idx, yr, yi,
+          n_streams, t_len, n1, q, cf, m, gain);
+    else if (ranks == jsdr_spec::kCluster)
+      e = jsdr_spec::launch_blocks<jsdr_spec::kCluster>(
+          spec_front_kernel<jsdr_spec::kCluster>, nblk, n_streams, n1, st, xr,
+          xi, win, pl, cos_pat, sin_pat, taps, tail_r, tail_i, wf, mx, idx,
+          yr, yi, n_streams, t_len, n1, q, cf, m, gain);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(jsdr_fir::launch_mix_tail(
@@ -153,13 +175,16 @@ extern "C" int jsdr_spec_front(
       t_len, st));
 }
 
-// The static shared memory of the merged kernel (its taps, pattern and halo
-// arrays and the body's peak reduction), which the dynamic block shares the
-// CTA's 232,448 bytes with: jsdr_tpu_torch/ops/spectrum_fused.py derives the
-// card's largest n1 from it.
-extern "C" int jsdr_spec_front_static_smem(int* bytes) {
+// The static shared memory of the merged kernel at ranks 1 or 4 (its taps,
+// pattern and halo arrays and the body's peak reduction), which the
+// dynamic planes share the CTA's 232,448 bytes with:
+// jsdr_tpu_torch/ops/spectrum_fused.py derives the one-CTA n1 limit from
+// it, and checks the cluster's fit at n1 = 512.
+extern "C" int jsdr_spec_front_static_smem(int ranks, int* bytes) {
   cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, spec_front_kernel);
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, ranks == 1 ? spec_front_kernel<1>
+                     : spec_front_kernel<jsdr_spec::kCluster>);
   if (e == cudaSuccess) *bytes = static_cast<int>(a.sharedSizeBytes);
   return static_cast<int>(e);
 }

@@ -243,12 +243,28 @@ def stage2(plan: FftPlan, re: torch.Tensor, im: torch.Tensor,
 
 
 def fft_block(plan: FftPlan, re: torch.Tensor, im: torch.Tensor,
-              exact: bool = False):
+              exact: bool = False, ranks: int = 1):
     """The whole transform of [..., n1, 128] blocks A by the kernel's pass
     order: stage 1, the rows gathered by ``perm``, the twiddle TW, stage
-    2. Returns D[..., k1, k2] = X[n1*k2 + k1] in natural k1 and k2."""
-    br, bi = stage1(plan, re, im, exact)
-    perm = torch.as_tensor(plan.perm, dtype=torch.long, device=re.device)
-    br, bi = br[..., perm, :], bi[..., perm, :]
+    2. Returns D[..., k1, k2] = X[n1*k2 + k1] in natural k1 and k2.
+
+    ``ranks`` is the number of CTAs that hold a block
+    (``csrc/spectrum_body.cuh``): rank r runs stage 1 on columns
+    [r*C, (r+1)*C) (C = 128 / ranks) as flat [n1][C] planes, and stage 2
+    reads column c of storage row p from rank c // C at word
+    p*C + c % C (with 4 ranks, lane l's register i from rank i at word
+    p*32 + l). Stage 1 acts on each column alone, so every rank count
+    gives the same bits."""
+    cols = N2 // ranks
+    planes = [stage1(plan, re[..., r * cols:(r + 1) * cols],
+                     im[..., r * cols:(r + 1) * cols], exact)
+              for r in range(ranks)]
+    dev = re.device
+    perm = torch.as_tensor(plan.perm, dtype=torch.long, device=dev)
+    c = torch.arange(N2, device=dev)
+    word = perm[:, None] * cols + (c % cols)[None, :]        # [n1, 128]
+    rank = (c // cols)[None, :].expand_as(word)
+    br, bi = (torch.stack([p[k].flatten(-2) for p in planes],
+                          dim=-2)[..., rank, word] for k in (0, 1))
     tr, ti = _cplx(twiddle(plan.n1), re, exact)
     return stage2(plan, br * tr - bi * ti, br * ti + bi * tr, exact)

@@ -10,7 +10,9 @@ then the 65-tap matched filter over the carried 64-sample vco-mixed
 history. :func:`mix_decimate_mf` launches the CUDA kernel
 (``csrc/mix_dec_mf.cu``), in which the decimated stream never reaches
 device memory, for CUDA tensors, and runs :func:`mix_decimate_mf_ref`,
-the unfused chain, for CPU tensors.
+the unfused chain, for CPU tensors. :func:`_mix_dec_mf_walk` is the
+kernel's walk (spans, sub-chunks, matched-filter passes, their layouts in
+shared memory and carried halos) in plain PyTorch; only the tests call it.
 """
 
 from __future__ import annotations
@@ -19,10 +21,17 @@ import torch
 
 from . import _build
 from .cplx import CF
-from .fir import fir_apply_streaming
+from .fir import _fir_valid, fir_apply_streaming
 from .mix_decimate import N_TAPS, PERIOD, mix_decimate_ref
 
 N_MF = 65
+# csrc/mix_dec_mf.cu's walk: decimated samples a sub-chunk (at m = 10 and
+# 20; other m shrink it as m grows), outputs a thread and a matched-filter
+# pass, and the words of a bb row
+SUB = 256
+MF_R = 4
+PASS = 256 * MF_R
+BB_COLS = 296
 
 
 def mix_decimate_mf_ref(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
@@ -40,6 +49,99 @@ def mix_decimate_mf_ref(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
             ds.im * vco_sin.repeat(1, reps)[:, :t_ds])
     mf, new_mf_tail = fir_apply_streaming(bb, mf_taps, mf_tail)
     return mf, new_tail, new_mf_tail
+
+
+def _fir_rows(x: torch.Tensor, taps: torch.Tensor, stride: int, n: int):
+    """The n outputs of ``fir._fir_valid`` over x, which holds exactly
+    their window. A lone output is taken as the first of two: conv1d sums
+    a single output in another order than a row of them."""
+    if n == 1:
+        x = torch.cat([x, torch.zeros_like(x[..., :stride])], dim=-1)
+    return _fir_valid(x, taps, stride)[..., :n]
+
+
+def _mix_dec_mf_walk(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
+                     taps: torch.Tensor, m: int, tail: CF,
+                     vco_cos: torch.Tensor, vco_sin: torch.Tensor,
+                     mf_taps: torch.Tensor, mf_tail: CF, gain: float,
+                     span: int, sub: int = SUB):
+    """The kernel's walk (``csrc/mix_dec_mf.cu``) in plain PyTorch, each
+    value in :func:`mix_decimate_mf_ref`'s arithmetic, so the two agree
+    bit for bit. A CTA takes the outputs [k_s, k_s + span) of a stream and
+    computes the decimated samples from ds0 = k_s - 64 (0 for the first
+    span, which starts from the carried mf tail) in sub-chunks of ``sub``:
+    a sub-chunk's mixed input, with the 26 // m columns of FIR halo before
+    it, is stored polyphase (sample j of it at row j % m, column j // m of
+    rows (sub + 26 // m) | 1 words apart) and read back by tap; its
+    samples, VCO-mixed, go to bb position 64 + k - k_m (row p % 4, column
+    p // 4, rows BB_COLS apart). Every PASS samples (or at the span's end)
+    the matched filter runs over positions [0, 64 + n) of bb, thread t
+    forming the outputs at positions 64 + 4t .. 64 + 4t + 3; then bb's
+    last 64 positions carry to its first 64. Returns what
+    :func:`mix_decimate_mf` returns. Nothing on the main path calls it."""
+    s, t_len = iq.shape
+    n_out = t_len // m
+    h = (N_TAPS - 1) // m
+    wp = (sub + h) | 1
+    dev = iq.re.device
+    reps = -(-t_len // PERIOD)
+    pats = (cos_pat.repeat(1, reps)[:, :t_len],
+            sin_pat.repeat(1, reps)[:, :t_len])
+    mixed = [iq.re * pats[0], iq.im * pats[1]]
+    tails = (tail.re, tail.im)
+    vreps = -(-n_out // PERIOD)
+    vcos = (vco_cos.repeat(1, vreps)[:, :n_out],
+            vco_sin.repeat(1, vreps)[:, :n_out])
+    out = [torch.empty((s, n_out), dtype=torch.float32, device=dev)
+           for _ in range(2)]
+    new_mf = [mf_tail.re, mf_tail.im]
+
+    def bb_word(p):
+        return (p % MF_R) * BB_COLS + p // MF_R
+
+    halo = torch.arange(N_MF - 1, device=dev)
+    for k_s in range(0, n_out, span):
+        k_e = min(k_s + span, n_out)
+        ds0 = 0 if k_s == 0 else k_s - (N_MF - 1)
+        bb = [torch.zeros((s, MF_R * BB_COLS), device=dev) for _ in range(2)]
+        if k_s == 0:
+            for b, src in zip(bb, new_mf):
+                b[:, bb_word(halo)] = src
+        for k_m in range(ds0, k_e, PASS):
+            n_m = min(PASS, k_e - k_m)
+            for k_c in range(k_m, k_m + n_m, sub):
+                n = min(sub, k_m + n_m - k_c)
+                j = torch.arange((h + n) * m, device=dev)
+                t = (k_c - h) * m + j
+                word = (j % m) * wp + j // m
+                # FIR output k_c + i meets row (m-1-a) mod m at column
+                # i + h + floor((m-1-a) / m): samples (i+h+1)*m - 1 - a
+                first = (h + 1) * m - N_TAPS
+                k = k_c + torch.arange(n, device=dev)
+                for p in (0, 1):
+                    buf = torch.zeros((s, m * wp), device=dev)
+                    buf[:, word] = torch.where(
+                        t >= 0, mixed[p][:, t.clamp(min=0)],
+                        tails[p][:, (N_TAPS - 1 + t).clamp(0, N_TAPS - 2)])
+                    y = _fir_rows(buf[:, word][:, first:], taps, m, n) * gain
+                    bb[p][:, bb_word(N_MF - 1 + k - k_m)] = y * vcos[p][:, k]
+            pos = torch.arange(N_MF - 1 + n_m, device=dev)
+            seq = [b[:, bb_word(pos)] for b in bb]
+            # thread t, register u: the output at position 64 + 4t + u
+            kk = (MF_R * torch.arange(-(-n_m // MF_R), device=dev)[:, None]
+                  + torch.arange(MF_R, device=dev)[None, :]).reshape(-1)
+            kk = kk[(kk < n_m) & (k_m + kk >= k_s)]
+            for p in (0, 1):
+                mf = _fir_rows(seq[p], mf_taps, 1, n_m)
+                out[p][:, k_m + kk] = mf[:, kk]
+            if k_m + n_m == n_out:
+                new_mf = [q[:, n_m:n_m + N_MF - 1] for q in seq]
+            if k_m + n_m < k_e:
+                for b in bb:
+                    b[:, bb_word(halo)] = b[:, bb_word(n_m + halo)]
+    padded = [torch.cat([tails[p], mixed[p]], dim=1) for p in (0, 1)]
+    return (CF(*out), CF(*(q[:, t_len:].contiguous() for q in padded)),
+            CF(*(q.contiguous() for q in new_mf)))
 
 
 def mix_decimate_mf(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,

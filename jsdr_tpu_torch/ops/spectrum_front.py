@@ -21,9 +21,9 @@ import torch
 from . import _build
 from .cplx import CF
 from .mix_decimate import N_TAPS, PERIOD, mix_decimate_ref
-from .spectrum_fused import (N2, check_cuda_size, check_geometry,
-                             kernel_tables, plan_ints, power_scale,
-                             spectrum_wf_ref, wf_group_for)
+from .spectrum_fused import (N2, check_geometry, cuda_ranks, kernel_tables,
+                             plan_ints, power_scale, spectrum_wf_ref,
+                             wf_group_for)
 
 
 def sf_geometry(n: int, m: int) -> tuple[int, int]:
@@ -49,7 +49,7 @@ def spectrum_front_ref(iq: CF, n: int, cos_pat: torch.Tensor,
 def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
                          sin_pat: torch.Tensor, taps: torch.Tensor, m: int,
                          tail: CF, gain: float = 1.0, window: bool = True,
-                         max_width: int = 2048):
+                         max_width: int = 2048, cluster: bool = False):
     """Merged waterfall spectrum + tuner mix + decimating FIR.
 
     ``iq``: CF of float32 [S, T], T a multiple of n (n % 128 == 0) and n a
@@ -57,7 +57,9 @@ def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
     ``taps``: [27]; ``tail``: CF [S, 26] carried mixed-domain history.
     Returns (wf [T//n, S, G, 128] dB decimated lines — see
     ``spectrum_waterfall`` — peak_db [T//n, S], flat permuted argmax
-    [T//n, S] int32, ds CF [S, T//m], new_tail CF [S, 26])."""
+    [T//n, S] int32, ds CF [S, T//m], new_tail CF [S, 26]). On a card a
+    block takes one CTA up to n1 = 225 and a 4-CTA cluster above
+    (``cluster`` as in :func:`.spectrum_fused.cuda_ranks`)."""
     s, t_len = iq.shape
     dev = iq.re.device
     q = wf_group_for(n, max_width)
@@ -79,7 +81,6 @@ def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
                                   gain, window, max_width)
     if dev.type != "cuda":
         raise ValueError(f"spectrum_front_fused: unsupported device {dev}")
-    check_cuda_size("spectrum_front_fused", n)
 
     n1, nblk = n // N2, t_len // n
     wf = torch.empty((nblk, s, n1 // q, N2), dtype=torch.float32, device=dev)
@@ -98,7 +99,7 @@ def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
             tail.re.data_ptr(), tail.im.data_ptr(), wf.data_ptr(),
             mx.data_ptr(), idx.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             tr.data_ptr(), ti.data_ptr(), s, t_len, n1, q, *plan_ints(n),
-            power_scale(n), m, float(gain), stream)
+            power_scale(n), m, float(gain), cuda_ranks(n, cluster), stream)
     _build.check(code, "spectrum_front_fused")
     spectrum_front_fused.launches += 1
     return wf, mx, idx, CF(yr, yi), CF(tr, ti)
@@ -107,12 +108,13 @@ def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
 spectrum_front_fused.launches = 0
 
 
-def static_smem_bytes() -> int:
-    """The compiled merged kernel's static shared memory (bytes), on the
-    card; ``spectrum_fused.STATIC_SMEM`` must hold it."""
+def static_smem_bytes(ranks: int = 1) -> int:
+    """The compiled merged kernel's static shared memory (bytes) at
+    ``ranks`` CTAs a block, on the card; ``spectrum_fused.STATIC_SMEM``
+    must hold it."""
     import ctypes
 
     out = ctypes.c_int(0)
     _build.check(_build.kernels().jsdr_spec_front_static_smem(
-        ctypes.byref(out)), "spec_front static shared memory")
+        ranks, ctypes.byref(out)), "spec_front static shared memory")
     return out.value

@@ -45,17 +45,30 @@ SMEM_PER_CTA = 232_448   # the shared memory a CTA may use on Hopper
 # pattern and halo, 1,340 bytes; the body's peak reduction, 64), rounded
 # up to 16; chip_smoke.py holds the compiled kernel's figure to it
 STATIC_SMEM = 1408
+CLUSTER = 4         # CTAs a block above ONE_CTA_MAX_N1 (32 columns each)
 
 
-def smem_bytes(n1: int) -> int:
-    """The dynamic shared memory of one spectrum CTA: the block's two
-    float32 planes, 8 bytes a sample (csrc/spectrum_body.cuh::smem_bytes)."""
-    return 8 * N2 * n1
+def smem_bytes(n1: int, ranks: int = 1) -> int:
+    """The dynamic shared memory of one spectrum CTA: its columns of the
+    block's two float32 planes, 8 bytes a sample
+    (csrc/spectrum_body.cuh::smem_bytes)."""
+    return 8 * N2 * n1 // ranks
 
 
-# The card's largest n1: one block in one CTA's shared memory beside the
-# merged kernel's static arrays (225: n <= 28,800)
-CUDA_MAX_N1 = (SMEM_PER_CTA - STATIC_SMEM) // smem_bytes(1)
+# The largest n1 one CTA holds beside the merged kernel's static arrays
+# (225: n <= 28,800); above it a cluster of CLUSTER CTAs holds the block,
+# each CTA 32 columns of every row (128 KB at n1 = MAX_N1)
+ONE_CTA_MAX_N1 = (SMEM_PER_CTA - STATIC_SMEM) // smem_bytes(1)
+
+
+def cuda_ranks(n: int, cluster: bool = False) -> int:
+    """CTAs per FFT block on the card: 1 up to ``ONE_CTA_MAX_N1``, else a
+    cluster of ``CLUSTER``. ``cluster=True`` takes the cluster at any n1:
+    only the tests and chip_smoke.py ask for it, to compare the two
+    layouts on the card."""
+    return CLUSTER if cluster or n // N2 > ONE_CTA_MAX_N1 else 1
+
+
 _EPS = 1e-30
 
 
@@ -129,13 +142,6 @@ def check_geometry(fn: str, t_len: int, n: int, q: int) -> None:
         raise ValueError(f"{fn}: the group q = {q} must divide n1 = {n1}")
 
 
-def check_cuda_size(fn: str, n: int) -> None:
-    if n // N2 > CUDA_MAX_N1:
-        raise ValueError(
-            f"{fn}: n = {n} is too large for the CUDA kernel, which holds "
-            f"one FFT block in shared memory (n // 128 <= {CUDA_MAX_N1})")
-
-
 def _windowed(iq: CF, n: int, tb: SpecTables):
     """The windowed blocks as [S, T//n, n1, 128] planes."""
     s, t_len = iq.shape
@@ -174,17 +180,21 @@ def spectrum_wf_ref(iq: CF, n: int, window: bool = True, q: int = 1):
     return _lines(dr, di, n, q)
 
 
-def spectrum_fft_ref(iq: CF, n: int, window: bool = True, q: int = 1):
+def spectrum_fft_ref(iq: CF, n: int, window: bool = True, q: int = 1,
+                     ranks: int = 1):
     """Plain mirror of the kernels' factored FFT: the same window and
     outputs as :func:`spectrum_wf_ref`, with the transform taken pass by
-    pass on the plan's float32 tables (:func:`.fft_plan.fft_block`). Only
-    the tests call it: it is the CPU witness that the tables the kernels
-    read compute the DFT."""
+    pass on the plan's float32 tables (:func:`.fft_plan.fft_block`), the
+    block held as one CTA holds it (``ranks=1``) or as a cluster of
+    ``ranks`` CTAs does (``CLUSTER``: stage 1 on each rank's 32 columns,
+    stage 2's rows gathered across the ranks). Only the tests call it: it
+    is the CPU witness that the tables the kernels read compute the DFT,
+    and that both layouts give the same bits."""
     ar, ai = _windowed(iq, n, spec_tables(n, window, iq.re.device))
-    return _lines(*fft_block(fft_plan(n // N2), ar, ai), n, q)
+    return _lines(*fft_block(fft_plan(n // N2), ar, ai, ranks=ranks), n, q)
 
 
-def _spectrum_wf(iq: CF, n: int, window: bool, q: int):
+def _spectrum_wf(iq: CF, n: int, window: bool, q: int, cluster: bool):
     """Kernel 4 for CUDA tensors, its plain version for CPU tensors."""
     s, t_len = iq.shape
     dev = iq.re.device
@@ -196,7 +206,6 @@ def _spectrum_wf(iq: CF, n: int, window: bool, q: int):
         return spectrum_wf_ref(iq, n, window, q)
     if dev.type != "cuda":
         raise ValueError(f"spectrum_fused: unsupported device {dev}")
-    check_cuda_size("spectrum_fused", n)
 
     n1, nblk = n // N2, t_len // n
     wf = torch.empty((nblk, s, n1 // q, N2), dtype=torch.float32, device=dev)
@@ -210,23 +219,24 @@ def _spectrum_wf(iq: CF, n: int, window: bool, q: int):
         code = lib.jsdr_spectrum_wf(
             iq.re.data_ptr(), iq.im.data_ptr(), *kernel_tables(n, window, dev),
             wf.data_ptr(), mx.data_ptr(), idx.data_ptr(), s, t_len, n1, q,
-            *plan_ints(n), power_scale(n), stream)
+            *plan_ints(n), power_scale(n), cuda_ranks(n, cluster), stream)
     _build.check(code, "spectrum_fused")
     spectrum_fused.launches += 1
     return wf, mx, idx
 
 
 def spectrum_fused(iq: CF, n: int, window: bool = True,
-                   with_peaks: bool = False):
+                   with_peaks: bool = False, cluster: bool = False):
     """Fused window + FFT + PSD (+ peak search) over contiguous time rows.
 
     iq: CF of float32 [S, T] with T % n == 0, n % 128 == 0 and
-    n // 128 <= 512 (on a card, <= ``CUDA_MAX_N1`` = 225). Returns the dB PSD as
+    n // 128 <= 512 (on a card one CTA a block up to 225, a 4-CTA cluster
+    above; ``cluster`` as in :func:`cuda_ranks`). Returns the dB PSD as
     [T//n, S, n1, 128] in PERMUTED frequency order (element [..., k1, k2]
     is natural bin n1*k2 + k1; :func:`spectrum_natural_order` flattens
     it). ``with_peaks=True`` also returns (peak_db [T//n, S], flat
     permuted argmax [T//n, S] int32), computed in the kernel."""
-    psd, mx, idx = _spectrum_wf(iq, n, window, 1)
+    psd, mx, idx = _spectrum_wf(iq, n, window, 1, cluster)
     return (psd, mx, idx) if with_peaks else psd
 
 
@@ -234,7 +244,7 @@ spectrum_fused.launches = 0
 
 
 def spectrum_waterfall(iq: CF, n: int, window: bool = True,
-                       max_width: int = 2048):
+                       max_width: int = 2048, cluster: bool = False):
     """Fused window + FFT + PSD -> DISPLAY-decimated dB lines + peaks,
     never materialising the full PSD: the max over q =
     ``wf_group_for(n, max_width)`` consecutive k1 at fixed k2, which is a
@@ -244,7 +254,7 @@ def spectrum_waterfall(iq: CF, n: int, window: bool = True,
     argmax [T//n, S]). Display pixel p = (n1//q)*k2 + g; use
     :func:`waterfall_natural_order` to flatten. The same kernel as
     :func:`spectrum_fused`, counted in ``spectrum_fused.launches``."""
-    return _spectrum_wf(iq, n, window, wf_group_for(n, max_width))
+    return _spectrum_wf(iq, n, window, wf_group_for(n, max_width), cluster)
 
 
 def spectrum_natural_order(psd_perm: torch.Tensor) -> torch.Tensor:

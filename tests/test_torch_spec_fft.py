@@ -3,7 +3,8 @@ mirror of their pass order (``spectrum_fused.spectrum_fft_ref``), on the
 CPU. The CUDA body (``csrc/spectrum_body.cuh``) reads exactly these
 tables; chip_smoke.py holds it against the plain version on the card.
 
-* The plan, for every n1 the card takes (1 .. CUDA_MAX_N1): stage 1
+* The plan, for every n1 the card takes (1 .. MAX_N1 = 512: one CTA a
+  block up to 225, a 4-CTA cluster above, both from these tables): stage 1
   applied in float64 with the exact tables equals ``np.fft.fft`` down 128
   random columns within 1e-9 of the column RMS, and in float32 with the
   float32 tables within 1e-5 (an fp32 FFT's error is ~1e-7 of the RMS);
@@ -35,7 +36,7 @@ from jsdr_tpu_torch.ops.cplx import from_complex
 from jsdr_tpu_torch.ops.mxu_fft import _twiddles
 
 DB_WF, DB_PEAK, AMP = 2e-3, 1e-3, 3e-4
-N1S = range(1, tsf.CUDA_MAX_N1 + 1)
+N1S = range(1, tsf.MAX_N1 + 1)
 
 
 def _columns(seed, n1):
@@ -88,7 +89,8 @@ def test_plan_indices_are_permutations():
     assert (k2 - k2[:, :1] == np.arange(4)[None, :]).all()
 
 
-@pytest.mark.parametrize("n1", [1, 2, 7, 75, 105, 150, 179, 225])
+@pytest.mark.parametrize("n1", [1, 2, 7, 75, 105, 150, 179, 225, 245, 300,
+                                509, 512])
 def test_plan_is_the_block_fft_in_float64(n1):
     rng = np.random.default_rng(n1)
     n = n1 * 128
@@ -102,7 +104,7 @@ def test_plan_is_the_block_fft_in_float64(n1):
     assert err <= 1e-9 * np.sqrt((np.abs(x) ** 2).mean())
 
 
-@pytest.mark.parametrize("n1", [75, 105, 150, 225])
+@pytest.mark.parametrize("n1", [75, 105, 150, 225, 300, 512])
 def test_plan_twiddle_rounds_to_the_kernels_table(n1):
     tw = fp.twiddle(n1)
     tr, ti = _twiddles(n1, 128, -1.0)

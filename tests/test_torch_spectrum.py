@@ -277,14 +277,48 @@ def test_wrapper_checks_inputs_and_runs_plain_on_cpu():
 
 
 def test_cuda_size_limit_is_the_shared_memory_limit():
-    """The card's limit on n1 follows from the kernels' shared memory
-    (csrc/spectrum_body.cuh::smem_bytes: the block only, 1024 bytes per
-    row of 128 samples, plus the merged kernel's 1,408 bytes of static
-    arrays, within 232,448 bytes), and takes every rate up to 256 kS/s."""
-    n1 = tsf.CUDA_MAX_N1
+    """The card's rule follows from the kernels' shared memory
+    (csrc/spectrum_body.cuh::smem_bytes: a CTA's columns of the block
+    only, 1024 bytes per row of 128 samples, plus the merged kernel's
+    1,408 bytes of static arrays, within 232,448 bytes): one CTA holds a
+    block up to n1 = 225 (every rate up to 288 kS/s at n = rate/10); a
+    4-CTA cluster, 32 columns a CTA, holds one at every n1 up to the
+    reference's 512, so no n1 the wrappers take is refused on the card."""
+    n1 = tsf.ONE_CTA_MAX_N1
     assert tsf.smem_bytes(n1) == 1024 * n1 and tsf.STATIC_SMEM == 1408
     assert 1024 * n1 + 1408 <= 232448 < 1024 * (n1 + 1) + 1408
-    assert n1 >= 200
-    tsf.check_cuda_size("k", 128 * n1)
-    with pytest.raises(ValueError, match="too large for the CUDA kernel"):
-        tsf.check_cuda_size("k", 128 * (n1 + 1))
+    assert n1 == 225
+    assert tsf.smem_bytes(tsf.MAX_N1, tsf.CLUSTER) == 131072
+    for m in range(1, tsf.MAX_N1 + 1):
+        ranks = tsf.cuda_ranks(128 * m)
+        assert ranks == (1 if m <= n1 else tsf.CLUSTER)
+        assert tsf.smem_bytes(m, ranks) + tsf.STATIC_SMEM <= tsf.SMEM_PER_CTA
+        tsf.check_geometry("k", 128 * m, 128 * m, 1)       # taken, no raise
+    with pytest.raises(ValueError, match="512"):
+        tsf.check_geometry("k", 128 * 513, 128 * 513, 1)
+
+
+def test_spectrum_wide_matches_reference_above_one_cta():
+    """n = 38,400 at 384 kS/s (n1 = 300: the card's cluster path), against
+    the JAX package in Pallas interpret mode: on a noise floor the full
+    PSD and peaks of its kernel at HIGHEST within 2e-3 and 1e-3 dB; on
+    tones the peak frequencies of spectrum_wide equal, at the tones."""
+    rate, n = 384000, 38400
+    x = _noise(300, 2, n)
+    want = jpk.spectrum_fused(j_from_complex(x), n, interpret=True,
+                              precision="highest", with_peaks=True)
+    got = tsf.spectrum_fused(from_complex(x, "cpu"), n, with_peaks=True)
+    assert tuple(got[0].shape) == (1, 2, 300, 128)
+    np.testing.assert_allclose(got[0].numpy(), _np(want[0]), rtol=0,
+                               atol=DB_HIGHEST)
+    np.testing.assert_allclose(got[1].numpy(), _np(want[1]), rtol=0,
+                               atol=DB_PEAK)
+    x = _tones(301, 2, n, float(rate))
+    want = j_spec.spectrum_wide(j_from_complex(x), n, rate=float(rate),
+                                interpret=True)
+    got = t_spec.spectrum_wide(from_complex(x, "cpu"), n, rate=float(rate))
+    assert tuple(got.psd.shape) == (2, 1, n)
+    np.testing.assert_array_equal(got.peak_freq.numpy(),
+                                  _np(want.peak_freq))
+    f = 1000.0 + 2750.0 * np.arange(2) - 20000.0 * (np.arange(2) % 2)
+    assert np.all(np.abs(got.peak_freq.numpy() - f[:, None]) <= 10)
