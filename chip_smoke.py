@@ -42,13 +42,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 MAIN_SHAPE = (128, 96000)           # streams x samples per 1 s block
-# kernel 1 checks: (streams, samples, rate) at 96 k, 192 k, and a ragged
-# last tile (9544 outputs = 74 tiles of 128 + 72)
-MIX_CASES = ((128, 96000, 96000), (64, 192000, 192000), (13, 95440, 96000))
-# kernel 6: kernel 1's cases, then two rates whose m (14 at 134.4 k; 40 at
-# 384 k, where a sub-chunk shrinks to 128 outputs) the kernel takes at run
-# time
-MF_CASES = MIX_CASES + ((64, 134400, 134400), (32, 384000, 384000))
+# kernels 1 and 6: (streams, samples, rate) at 96 k and 192 k (m = 10 and
+# 20, compiled with m fixed), a ragged stream and output count (9544
+# outputs), then two rates whose m (14 at 134.4 k; 40 at 384 k, where a
+# sub-chunk shrinks to 128 outputs) the kernels take at run time
+MIX_CASES = ((128, 96000, 96000), (64, 192000, 192000), (13, 95440, 96000),
+             (64, 134400, 134400), (32, 384000, 384000))
 # kernels 3 and 4: (streams, samples, rate): the flagship shape (4.8 s
 # blocks at 96 k, bench.py's), 192 k, a ragged stream count, the 1 s
 # block that takes the staged branch, 134.4 k (n1 = 105 = 3*5*7: the
@@ -68,9 +67,12 @@ FLAGSHIP_SHAPE = (128, 460800)      # streams x samples per 4.8 s block
 # flagship's (1/10 of the input rate), and twice the flagship's streams
 TIMING_CASES = ((128, 9600), (128, 46080), (256, 46080))
 # kernel 5: (rows, bins, width): the Session's 1 s block of 0.1 s spectra
-# at 96 k and 192 k, 128 streams' 1 s of blocks, and an odd width
+# at 96 k and 192 k (tiles of 20 and 19 groups: the last of 19 ragged),
+# 128 streams' 1 s of blocks, an odd width (tiles of 2 groups, the last
+# holding 1), rows that start off 16-byte alignment (n = 9590, step 137),
+# and groups larger than a CTA's slab of dB (width 3, step 3200)
 PSD_CASES = ((10, 9600, 960), (10, 19200, 960), (1280, 9600, 960),
-             (10, 9600, 75))
+             (10, 9600, 75), (6, 9590, 70), (10, 9600, 3))
 # the Session's stream: frames at 3 of the 21 tunings, 7 s of 1 s blocks
 SESSION_CARRIERS = (7500.0, 13500.0, 19500.0)
 SESSION_BLOCKS = 7
@@ -339,8 +341,12 @@ def report_steps(torch, wall, prof, profiled: int, tag: str,
 
 
 def phase_mix_decimate(torch, np, dev, rng, tag):
-    """Phase 3: kernel 1 against its plain version at the main path's
-    shapes (96 k and 192 k) and at a ragged one."""
+    """Phase 3: kernel 1 against its plain version (within 1e-5 of
+    max|y|: conv1d sums in another order; tails bit for bit) at
+    MIX_CASES, and one call of it, profiled, launching one device kernel.
+    Times it (event time back to back, and its device time alone,
+    :func:`device_ms`) beside the plain version and the bound. Returns the
+    row at the main path's shape (128 x 96,000)."""
     from jsdr_tpu_torch.demod.bpsk import (DS_FILTER, HOWARD_FUDGE_FACTOR,
                                            NU_SCALE, _nco_pattern,
                                            tunings_to_nu)
@@ -378,16 +384,29 @@ def phase_mix_decimate(torch, np, dev, rng, tag):
         need(torch.equal(tl.re, tlp.re) and torch.equal(tl.im, tlp.im),
              f"mix_decimate S={s} T={t_len}: tails differ")
         worst = max(worst, err)
+        if (s, t_len) == MAIN_SHAPE:
+            with profiler(torch) as prof:
+                mix_decimate(*inputs[1])
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type
+                     == torch.autograd.DeviceType.CUDA]
+            need(len(names) == 1, f"mix_decimate: one call launched {names}, "
+                 "want one device kernel")
         ms = time_ms(torch, mix_decimate, inputs, 20)
+        dev_ms = device_ms(torch, mix_decimate, inputs, 20)
         plain_ms = time_ms(torch, mix_decimate_ref, inputs, 5)
-        gbs = (s * t_len * 8 + s * (t_len // m) * 8) / ms / 1e6
+        flops, nbytes = front_work(s, t_len, m)
+        b_ms, b_by = bound(flops, nbytes)
         print(f"{tag} mix_decimate S={s} T={t_len} m={m}: max|k-p| {err:.3e}"
               f" (<= 1e-5 x {scale:.3e}), tails equal; kernel {ms:.4f} ms "
-              f"({gbs:.0f} GB/s), plain {plain_ms:.4f} ms")
+              f"(device time {dev_ms:.4f} ms, {nbytes / dev_ms / 1e6:.0f} "
+              f"GB/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by}")
         if (s, t_len) == MAIN_SHAPE:
-            b_ms, b_by = bound(*front_work(s, t_len, m))
-            res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
+            res = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del inputs, y, yp
+        torch.cuda.empty_cache()
     res["max_abs_err"] = worst
     return res
 
@@ -472,8 +491,8 @@ def phase_timing(torch, np, dev, rng, tag):
               f"chain floor {chain_ms:.5f} ms ({n_groups} x 8 cycles at "
               f"{clock_mhz:.0f} MHz)")
         if (s, t_ds) == TIMING_CASES[0]:
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
+            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del inputs, blocks, state, sk, sp, k, p
         torch.cuda.empty_cache()
     row["max_abs_err"] = worst
@@ -1078,10 +1097,12 @@ def phase_flagship(torch, np, dev, rng, tag, k3):
 def phase_psd_waterfall(torch, np, dev, tag):
     """Phase 9: kernel 5 (PSD + 8-bit waterfall line) against its plain
     version, bit for bit (both round every product and sum in the same
-    order and take log10f), at the Session's shapes: one 1 s block of
-    0.1 s spectra at 96 k and at 192 k, 128 streams' 1 s of blocks (for a
-    time and a bound at scale), and an odd width. Returns the row at the
-    Session's shape (10 x 9600, width 960)."""
+    order and take log10f), at PSD_CASES: the Session's shapes (one 1 s
+    block of 0.1 s spectra at 96 k and at 192 k), 128 streams' 1 s of
+    blocks (for a time and a bound at scale), an odd width, unaligned rows
+    and groups larger than a CTA's slab. Times it (event time back to
+    back, and its device time alone, :func:`device_ms`). Returns the row
+    at the Session's shape (10 x 9600, width 960)."""
     from jsdr_tpu_torch.ops.cplx import CF
     from jsdr_tpu_torch.ops.psd_waterfall import (psd_waterfall,
                                                   psd_waterfall_ref)
@@ -1114,16 +1135,19 @@ def phase_psd_waterfall(torch, np, dev, tag):
              f"psd_waterfall {label}: kernel differs from plain (db "
              f"{db_err} dB, lines {line_diff} counts)")
         ms = time_ms(torch, psd_waterfall, inputs, 20)
+        dev_ms = device_ms(torch, psd_waterfall, inputs, 20)
         plain_ms = time_ms(torch, psd_waterfall_ref, inputs, 5)
         # per bin: 2 squares, a sum, the scale, dB scale, max (+ log10f);
         # bytes: the two planes in, db and the line out
         b_ms, b_by = bound(6.0 * b * n, 12.0 * b * n + b * width)
         print(f"{tag} psd_waterfall {label}: db and lines equal to plain "
-              f"(bit for bit); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms by {b_by}")
+              f"(bit for bit); kernel {ms:.4f} ms (device time {dev_ms:.4f}"
+              f" ms), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by}")
         if (b, n, width) == PSD_CASES[0]:
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None, max_abs_err=db_err)
+            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       max_abs_err=db_err)
     return row
 
 
@@ -1135,7 +1159,7 @@ def phase_mix_decimate_mf(torch, np, dev, rng, tag):
     last 64 of [mf tail ++ _vco_mix(kernel 1's output)], bit for bit; and
     two chained half blocks (patterns rolled on by the first half, as the
     demodulator's state advances them) equal to one whole block, bit for
-    bit, at MF_CASES. Times it (event time back to back, and its device
+    bit, at MIX_CASES. Times it (event time back to back, and its device
     time alone, :func:`device_ms`) beside the plain version and the
     unfused device chain (kernel 1, the VCO mix, the cuDNN matched
     filter). Returns the row at the main path's shape (128 x 96,000)."""
@@ -1152,7 +1176,7 @@ def phase_mix_decimate_mf(torch, np, dev, rng, tag):
     taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
     mf_taps = torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev)
     row, worst = None, 0.0
-    for s, t_len, rate in MF_CASES:
+    for s, t_len, rate in MIX_CASES:
         m = rate // 9600
 
         def rand(*shape):
@@ -1251,8 +1275,9 @@ def phase_mix_decimate_mf(torch, np, dev, rng, tag):
               f"ms, unfused device chain {chain_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}")
         if (s, t_len) == MAIN_SHAPE:
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None, chain_ms=chain_ms)
+            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       chain_ms=chain_ms)
         del inputs, k, p, ds1, bb1
         torch.cuda.empty_cache()
     row["max_abs_err"] = worst

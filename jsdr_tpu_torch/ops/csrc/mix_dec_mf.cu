@@ -23,16 +23,13 @@
 // sub-chunks of 256 decimated samples, and runs the matched filter every
 // 1024 of them (one pass). Shared memory traffic, not arithmetic, is what
 // the design spends carefully:
-//   * input: each sub-chunk's samples (and the 26/m columns of FIR halo
-//     before it, re-read from L2) are loaded into registers one sub-chunk
-//     ahead of the one being computed, so the DRAM read overlaps the FIR
-//     and the matched filter; then mixed (a thread's samples are 256
-//     apart, so one pattern entry serves all of them) and stored into a
-//     polyphase layout, sample j of the sub-chunk at row j % m, column
-//     j / m, in the other of two buffers.
-//   * FIR: one decimated sample a thread; tap a of every lane reads one
-//     row at consecutive columns (no bank conflicts at any m); the taps
-//     live in registers. The same fir_output chain as kernels 1 and 3.
+//   * input and FIR: the staged polyphase walk of front_walk.cuh, shared
+//     with kernel 1: each sub-chunk's samples are loaded into registers
+//     one sub-chunk ahead of the one being computed, so the DRAM read
+//     overlaps the FIR and the matched filter, then mixed and stored
+//     polyphase in the other of two buffers; one decimated sample a
+//     thread, every tap's lanes on consecutive words of one row, the taps
+//     in registers, the same fir_output chain as kernels 1 and 3.
 //   * VCO mix into bb, stored by position p at row p % 4, column p / 4
 //     (rows 296 words apart).
 //   * matched filter: thread t forms the 4 consecutive outputs at
@@ -43,26 +40,25 @@
 //   * the 64-sample matched-filter halo is carried in bb from pass to pass
 //     (the stream's first span starts from the carried mf tail; a later
 //     span recomputes the 64 decimated samples before it, once).
-// A second small launch writes the new ds tail, as mix_decimate.cu does.
+// A second small launch writes the new ds tail (fir_mix.cuh).
 // m = 10 and 20 (96 and 192 kS/s) are compiled with m fixed, so every
-// tap's shared-memory offset is a constant: 2.7x and 1.9x faster there
-// than the same code with m at run time (tools/mf_probe.py on an H100).
-// Any other m takes that code, and sub-chunks shrink (to 8) as m grows so
-// a thread stages at most kMaxPer samples a plane.
+// tap's shared-memory offset is a constant: 1.4x and 1.1x faster there
+// than the same code with m at run time, its offsets stepped
+// (tools/mf_probe.py on an H100). Any other m takes that code, and
+// sub-chunks shrink (to 8) as m grows so a thread stages at most kMaxPer
+// samples a plane.
 #include <cuda_runtime.h>
 
-#include <map>
-#include <mutex>
-#include <utility>
-
-#include "fir_mix.cuh"
+#include "front_walk.cuh"
 
 namespace {
 
 using jsdr_fir::kHalo;
 using jsdr_fir::kPeriod;
 using jsdr_fir::kTaps;
-constexpr int kThreads = 256;
+using jsdr_walk::kMaxPer;
+using jsdr_walk::kThreads;
+using jsdr_walk::row_words;
 constexpr int kMfTaps = 65;
 constexpr int kMfHalo = kMfTaps - 1;
 constexpr int kR = 4;                        // matched-filter outputs a thread
@@ -71,31 +67,14 @@ constexpr int kPass = kThreads * kR;         // outputs a matched-filter pass
 // stores of 32 consecutive positions (4 rows x 8 columns) hit 32 banks
 constexpr int kBbCols = 296;
 constexpr int kMinSpan = 512;                // outputs; bounds the halo's share
-constexpr int kMaxPer = 21;  // input samples a thread stages a plane
 static_assert(kPass % kThreads == 0, "sub-chunks divide a pass");
 static_assert((kMfHalo + kPass) / kR <= kBbCols && kBbCols % 32 == 8,
               "bb layout");
-
-// Words of one input row: the sub-chunk's columns and 26/m halo columns,
-// odd (fewer bank conflicts on the staged samples' scattered stores).
-__host__ __device__ constexpr int row_words(int sub, int m) {
-  return (sub + kHalo / m) | 1;
-}
 
 __host__ constexpr size_t smem_bytes(int sub, int m) {
   return sizeof(float) * (2 * 2 * static_cast<size_t>(m) * row_words(sub, m) +
                           2 * kR * kBbCols);
 }
-
-// Input samples a thread stages a plane and sub-chunk of kThreads outputs
-// at a fixed m (kMaxPer at run-time m).
-template <int kM>
-__host__ __device__ constexpr int per_thread() {
-  return kM > 0 ? ((kThreads + kHalo / kM) * kM + kThreads - 1) / kThreads
-                : kMaxPer;
-}
-static_assert(per_thread<10>() <= kMaxPer && per_thread<20>() <= kMaxPer,
-              "staging registers");
 
 // bb position p (p >= 0) of a plane
 __device__ __forceinline__ int bb_word(int p) {
@@ -160,49 +139,19 @@ mix_dec_mf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   for (int a = 0; a < kTaps; ++a) tp[a] = __ldg(taps + a);
 
   // Sub-chunk c holds decimated samples k_c .. k_c + n - 1 (k_c = ds0 +
-  // c * sub); its input is samples t = (k_c - h) * m + j, j < (h + n) * m.
-  // Thread tid loads j = tid + kThreads * i into registers, then mixes
-  // and stores them at word (j % m) * wp + j / m of buffer c & 1.
-  constexpr int kPer = per_thread<kM>();
-  float ur[kPer], ui[kPer];
+  // c * sub); its input is samples t = (k_c - h) * m + j, j < (h + n) * m,
+  // staged in registers, then stored polyphase into buffer c & 1
+  // (front_walk.cuh).
+  jsdr_walk::Stager<kM> st;
   auto load = [&](int c) {
     const int k_c = ds0 + c * sub;
-    const int t0 = (k_c - h) * m;
-    const int cnt = (h + min(sub, k_e - k_c)) * m;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int j = tid + kThreads * i;
-      if (j < cnt && t0 + j >= 0) {
-        ur[i] = __ldg(xr + row + t0 + j);
-        ui[i] = __ldg(xi + row + t0 + j);
-      }
-    }
+    st.load(xr, xi, row, (k_c - h) * m, (h + min(sub, k_e - k_c)) * m, tid);
   };
-  // t < 0: the carried tail, already mixed (h * m <= 26, so t >= -26);
-  // else the pattern entry (t0 + tid) & 127 (j steps by a multiple of 128)
   auto store = [&](int c) {
     const int k_c = ds0 + c * sub;
-    const int t0 = (k_c - h) * m;
-    const int cnt = (h + min(sub, k_e - k_c)) * m;
     float* br = in + (c & 1) * 2 * plane;
-    float* bi = br + plane;
-    const int p = (t0 + tid) & (kPeriod - 1);
-    const float cr = cs[p], ci = sn[p];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int j = tid + kThreads * i;
-      if (j < cnt) {
-        const int w = (j % m) * wp + j / m;
-        const int t = t0 + j;
-        if (t >= 0) {
-          br[w] = __fmul_rn(ur[i], cr);
-          bi[w] = __fmul_rn(ui[i], ci);
-        } else {
-          br[w] = tail_r[s * kHalo + kHalo + t];
-          bi[w] = tail_i[s * kHalo + kHalo + t];
-        }
-      }
-    }
+    st.store(br, br + plane, cs, sn, tail_r + s * kHalo, tail_i + s * kHalo,
+             (k_c - h) * m, (h + min(sub, k_e - k_c)) * m, m, wp, tid);
   };
 
   load(0);
@@ -221,16 +170,7 @@ mix_dec_mf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const int n_m = min(kPass, k_e - k_m);
     if (tid < n) {
       const int k = k_c + tid;
-      // tap a meets j = (tid + h + 1) * m - 1 - a: row (m - 1 - a) mod m,
-      // column tid + h + floor((m - 1 - a) / m) (>= tid: h = 26 / m)
-      const float2 y = jsdr_fir::fir_output(
-          [&](int a) {
-            const int e = m - 1 - a;
-            const int q = (e % m + m) % m;
-            const int w = q * wp + tid + h + (e - q) / m;
-            return make_float2(br[w], bi[w]);
-          },
-          tp, gain);
+      const float2 y = jsdr_walk::fir_staged<kM>(br, bi, m, wp, tid, tp, gain);
       const int p = k & (kPeriod - 1);
       const int at = bb_word(kMfHalo + k - k_m);
       bbr[at] = __fmul_rn(y.x, vc[p]);
@@ -295,37 +235,6 @@ mix_dec_mf_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// The CTAs of one wave of mix_dec_mf_kernel<kM> with smem bytes of shared
-// memory on the current device. Worked out once per (device, smem) and
-// kept, so a launch makes no query; the shared-memory attribute is set to
-// smem_cap (the most any m takes) once with it.
-template <int kM>
-cudaError_t wave_ctas(size_t smem, size_t smem_cap, int* ctas) {
-  static std::mutex mu;
-  static std::map<std::pair<int, size_t>, int> known;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = known.find({dev, smem});
-  if (it == known.end()) {
-    int n_sm = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(mix_dec_mf_kernel<kM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_cap));
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, mix_dec_mf_kernel<kM>, kThreads, smem);
-    if (e != cudaSuccess) return e;
-    it = known.emplace(std::make_pair(dev, smem), n_sm * max(per_sm, 1))
-             .first;
-  }
-  *ctas = it->second;
-  return cudaSuccess;
-}
-
 template <int kM>
 cudaError_t launch(const float* xr, const float* xi, const float* cos_pat,
                    const float* sin_pat, const float* taps,
@@ -335,24 +244,21 @@ cudaError_t launch(const float* xr, const float* xi, const float* cos_pat,
                    const float* mtail_i, float* yr, float* yi,
                    float* nmtail_r, float* nmtail_i, int n_streams, int t_len,
                    int m, float gain, cudaStream_t st) {
-  int sub = kThreads;
-  if (kM == 0)
-    while (sub > 8 && (sub + kHalo / m) * m > kMaxPer * kThreads) sub /= 2;
-  if ((sub + kHalo / m) * m > per_thread<kM>() * kThreads)
-    return cudaErrorInvalidValue;  // m > 672
+  const int sub = jsdr_walk::sub_chunk<kM>(m);
+  if (sub == 0) return cudaErrorInvalidValue;  // m > kMaxM
   const size_t smem = smem_bytes(sub, m);
-  // m * row_words <= per_thread * kThreads + m, m <= 672
-  const size_t cap = kM > 0 ? smem
-                            : sizeof(float) * (4 * (kMaxPer * kThreads + 672) +
-                                               2 * kR * kBbCols);
+  // m * row_words <= per_thread * kThreads + m, m <= kMaxM
+  const size_t cap =
+      kM > 0 ? smem
+             : sizeof(float) * (4 * (kMaxPer * kThreads + jsdr_walk::kMaxM) +
+                                2 * kR * kBbCols);
   // spans: one wave of CTAs over the card, none shorter than kMinSpan
   int ctas = 0;
-  cudaError_t e = wave_ctas<kM>(smem, cap, &ctas);
+  cudaError_t e =
+      jsdr_walk::wave_ctas(mix_dec_mf_kernel<kM>, smem, cap, &ctas);
   if (e != cudaSuccess) return e;
   const int n_out = t_len / m;
-  const int spans = max(1, ctas / n_streams);
-  const int span =
-      max(kMinSpan, ((n_out + spans - 1) / spans + 31) / 32 * 32);
+  const int span = jsdr_walk::wave_span(ctas, n_streams, n_out, kMinSpan);
   const dim3 grid((n_out + span - 1) / span, n_streams);
   mix_dec_mf_kernel<kM><<<grid, kThreads, smem, st>>>(
       xr, xi, cos_pat, sin_pat, taps, tail_r, tail_i, vco_cos, vco_sin,

@@ -21,16 +21,17 @@ import torch
 
 from . import _build
 from .cplx import CF
-from .fir import _fir_valid, fir_apply_streaming
-from .mix_decimate import N_TAPS, PERIOD, mix_decimate_ref
+from .fir import fir_apply_streaming
+from .mix_decimate import (N_TAPS, PERIOD, THREADS, _fir_rows, _staged_fir,
+                           mix_decimate_ref)
 
 N_MF = 65
 # csrc/mix_dec_mf.cu's walk: decimated samples a sub-chunk (at m = 10 and
 # 20; other m shrink it as m grows), outputs a thread and a matched-filter
 # pass, and the words of a bb row
-SUB = 256
+SUB = THREADS
 MF_R = 4
-PASS = 256 * MF_R
+PASS = THREADS * MF_R
 BB_COLS = 296
 
 
@@ -49,15 +50,6 @@ def mix_decimate_mf_ref(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
             ds.im * vco_sin.repeat(1, reps)[:, :t_ds])
     mf, new_mf_tail = fir_apply_streaming(bb, mf_taps, mf_tail)
     return mf, new_tail, new_mf_tail
-
-
-def _fir_rows(x: torch.Tensor, taps: torch.Tensor, stride: int, n: int):
-    """The n outputs of ``fir._fir_valid`` over x, which holds exactly
-    their window. A lone output is taken as the first of two: conv1d sums
-    a single output in another order than a row of them."""
-    if n == 1:
-        x = torch.cat([x, torch.zeros_like(x[..., :stride])], dim=-1)
-    return _fir_valid(x, taps, stride)[..., :n]
 
 
 def _mix_dec_mf_walk(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
@@ -111,20 +103,11 @@ def _mix_dec_mf_walk(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
             n_m = min(PASS, k_e - k_m)
             for k_c in range(k_m, k_m + n_m, sub):
                 n = min(sub, k_m + n_m - k_c)
-                j = torch.arange((h + n) * m, device=dev)
-                t = (k_c - h) * m + j
-                word = (j % m) * wp + j // m
-                # FIR output k_c + i meets row (m-1-a) mod m at column
-                # i + h + floor((m-1-a) / m): samples (i+h+1)*m - 1 - a
-                first = (h + 1) * m - N_TAPS
                 k = k_c + torch.arange(n, device=dev)
+                ys, _ = _staged_fir(mixed, tails, taps, m, gain, k_c, n, wp)
+                at = bb_word(N_MF - 1 + k - k_m)
                 for p in (0, 1):
-                    buf = torch.zeros((s, m * wp), device=dev)
-                    buf[:, word] = torch.where(
-                        t >= 0, mixed[p][:, t.clamp(min=0)],
-                        tails[p][:, (N_TAPS - 1 + t).clamp(0, N_TAPS - 2)])
-                    y = _fir_rows(buf[:, word][:, first:], taps, m, n) * gain
-                    bb[p][:, bb_word(N_MF - 1 + k - k_m)] = y * vcos[p][:, k]
+                    bb[p][:, at] = ys[p] * vcos[p][:, k]
             pos = torch.arange(N_MF - 1 + n_m, device=dev)
             seq = [b[:, bb_word(pos)] for b in bb]
             # thread t, register u: the output at position 64 + 4t + u
