@@ -15,7 +15,10 @@ blocks at 96 kS/s, then one 1 s block that takes its staged branch
 (phase 8); and the streaming Session (``runtime.executor``: 128
 demodulator instances with the fused matched filter on one 96 kS/s
 stream of raw int16 chunks, beside the PSD + waterfall stage, with a
-checkpoint and resume; phase 11). It checks that each path went through
+checkpoint and resume; phase 11); and every tuning mode of the front end
+(``bpsk_block_batch`` in the general, static, FFT auto-tune and mixed
+modes, and the auto-tuned deployment's staged spectrum step; phase 12).
+It checks that each path went through
 its kernels, then times more steps of each on the host clock and
 profiles a few with torch.profiler for the device-busy share. Every
 phase asserts; any failure ends the run with a non-zero exit code and no
@@ -77,6 +80,15 @@ PSD_CASES = ((10, 9600, 960), (10, 19200, 960), (1280, 9600, 960),
 SESSION_CARRIERS = (7500.0, 13500.0, 19500.0)
 SESSION_BLOCKS = 7
 SEED = 2026
+# phase 12's auto-tuned (dofft) streams: (carrier Hz, seed) pairs, one
+# AO-40 frame each (payload from default_rng(500 + seed), noise rms 0.25
+# from the seed), built as tests/test_demod.py:89 builds its own. The
+# reference's auto-tuner is marginal by design (some payload draws lock
+# it ~300 Hz off, tests/test_bpsk_chain.py:241-245): pair 9 takes seed 16
+# because seed 9 is such a draw at 13650 Hz, in the JAX package too.
+# tests/test_torch_tuner.py shows the JAX package decodes every pair.
+DOFFT_STREAMS = tuple((3300.0 + 1150.0 * k, 16 if k == 9 else k)
+                      for k in range(16))
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): fp32 outside the tensor
 # cores, and device memory
 PEAK_FLOPS = 67e12
@@ -139,6 +151,25 @@ def front_work(s: int, t_len: int, m: int) -> tuple[float, float]:
     nbytes = (8.0 * s * t_len + 8.0 * s * 128 + 4 * 27 + 2 * 8.0 * s * 26
               + 8.0 * s * (t_len // m))
     return flops, nbytes
+
+
+def dofft_signals(rate: int, n_blocks: int = 5):
+    """The DOFFT_STREAMS signals at ``rate``: complex64 [16, n_blocks *
+    rate] (zero after each frame) and their payloads [16, 256]."""
+    from jsdr_tpu_torch.io.sources import synth_bpsk_stream
+
+    iq = np.zeros((len(DOFFT_STREAMS), n_blocks * rate), np.complex64)
+    payloads = []
+    for i, (carrier, seed) in enumerate(DOFFT_STREAMS):
+        pay = np.random.default_rng(500 + seed).integers(0, 256, (1, 256),
+                                                         dtype=np.uint8)
+        sig = synth_bpsk_stream(pay, rate=rate, carrier_offset=carrier,
+                                preamble_bits=400, noise_rms=0.25,
+                                seed=seed)
+        need(len(sig) <= iq.shape[1], "frame longer than the run")
+        iq[i, :len(sig)] = sig
+        payloads.append(pay[0])
+    return iq, np.stack(payloads)
 
 
 def main() -> int:
@@ -210,6 +241,9 @@ def main() -> int:
 
     # ---- phase 11: the streaming Session at a deployment's size -----------
     session = phase_session(torch, np, dev, rng, tag)
+
+    # ---- phase 12: every tuning mode at a deployment's size ---------------
+    phase_tuning_modes(torch, np, dev, rng, tag)
 
     need("jax" not in sys.modules and "jsdr_tpu" not in sys.modules,
          "jax or the JAX package was imported")
@@ -1472,6 +1506,325 @@ def phase_session(torch, np, dev, rng, tag):
           f"{means[False]:.3f} ms/block (host clock, same call)")
     return launches
 
+
+def decode_run(torch, np, dev, step, blocks, payloads, what: str):
+    """Run ``step(block)`` -> (out, ...) over ``blocks`` with one batched
+    FEC drain per block; every stream must decode its payload exactly once,
+    bit-exact. Returns (host step ms, drain ms, the outputs)."""
+    from jsdr_tpu_torch.fec.decoder import fec_decode
+
+    s = len(payloads)
+    decoded = [[] for _ in range(s)]
+    step_ms, fec_ms, outs = [], [], []
+    for x in blocks:
+        t0 = time.perf_counter()
+        out = step(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        need(bool(torch.isfinite(out.energies).all()),
+             f"{what}: non-finite energies")
+        hit = (torch.arange(out.windows.shape[1], device=dev)[None, :]
+               < out.n_hits[:, None])
+        stream_of = torch.nonzero(hit)[:, 0].cpu().numpy()
+        if len(stream_of):
+            res = fec_decode(out.windows[hit])
+            ok = res.ok.cpu().numpy()
+            pay = res.payload.cpu().numpy()
+            for j, si in enumerate(stream_of):
+                if ok[j]:
+                    decoded[si].append(pay[j])
+        fec_ms.append((time.perf_counter() - t1) * 1e3)
+        outs.append(out)
+    bad = [i for i in range(s) if len(decoded[i]) != 1
+           or not np.array_equal(decoded[i][0], payloads[i])]
+    need(not bad, f"{what}: streams {bad[:10]} did not decode their payload "
+         "exactly once")
+    return step_ms, fec_ms, outs
+
+
+def phase_tuning_modes(torch, np, dev, rng, tag):
+    """Phase 12: every tuning mode of the front end at a deployment's size
+    (96 kS/s, 1 s blocks, 5 chained, one batched FEC drain per block; every
+    payload bit-exact): the general mode (128 streams at 21 tunings that
+    are multiples of 0.1 Hz but not of 750 Hz: no kernel 1, the timing
+    kernel once a block), the static mode (8 streams at sub-0.1 Hz
+    tunings), the FFT auto-tuner (128 streams, DOFFT_STREAMS 8 times:
+    kernel 1, then with ``fuse_mf`` kernel 6, once a block; centre bins
+    near each carrier; the first 8 streams through the port on the CPU
+    give the same decisions and centre bins), mixed (64 pattern + 64
+    auto-tuned streams in one call), and one staged spectrum step of the
+    auto-tuned deployment (kernel 4; its waterfall the pattern-mode
+    step's, bit for bit). Then 10 timed and 3 profiled steps each of the
+    general and the auto-tuned step, and the device busy, launches and
+    event times of the general and auto-tuned front ends and of the tuner
+    alone, and whether each (and a pattern-mode step) makes the host wait
+    for the card."""
+    from jsdr_tpu_torch.demod.bpsk import (DS_FILTER as DS_TAPS,
+                                           HOWARD_FUDGE_FACTOR as GAIN,
+                                           BpskConfig, _tuner_full_mix,
+                                           bpsk_block_batch,
+                                           bpsk_block_batch_spectrum,
+                                           bpsk_init_batch, mix_mode_for)
+    from jsdr_tpu_torch.demod.fft_tuner import fft_tuner_blocks
+    from jsdr_tpu_torch.ops.fir import polyphase_decimate
+    from jsdr_tpu_torch.io.sources import synth_bpsk_stream
+    from jsdr_tpu_torch.ops.cplx import CF, from_complex
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
+    from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
+    from jsdr_tpu_torch.ops.spectrum_fused import spectrum_fused
+    from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
+
+    counted = (mix_decimate, mix_decimate_mf, timing_recover_batch,
+               spectrum_fused, spectrum_front_fused)
+
+    def reset():
+        for fn in counted:
+            fn.launches = 0
+
+    def read():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    def want(**k):
+        return {fn.__name__: k.get(fn.__name__, 0) for fn in counted}
+
+    s, rate = MAIN_SHAPE
+    n_blocks = 5
+
+    def manual_signals(tunings, seed0):
+        pays = rng.integers(0, 256, (len(tunings), 256), dtype=np.uint8)
+        iq = np.zeros((len(tunings), n_blocks * rate), np.complex64)
+        for i, tu in enumerate(tunings):
+            sig = synth_bpsk_stream(pays[i:i + 1], rate=rate,
+                                    carrier_offset=float(tu),
+                                    preamble_bits=200, noise_rms=0.25,
+                                    seed=seed0 + i)
+            need(len(sig) <= iq.shape[1], "frame longer than the run")
+            iq[i, :len(sig)] = sig
+        return iq, pays
+
+    def upload(iq):
+        return [from_complex(iq[:, b * rate:(b + 1) * rate], dev)
+                for b in range(n_blocks)]
+
+    def counted_run(cfg, iq, pays, tunings, what, **kw):
+        """Warm up on block 0, then the counted, decoded run from a fresh
+        state; returns (launches, step ms, drain ms, outs, state)."""
+        blocks = upload(iq)
+        bpsk_block_batch(blocks[0], cfg, bpsk_init_batch(cfg, len(iq), dev),
+                         tunings, **kw)
+        torch.cuda.synchronize()
+        st = [bpsk_init_batch(cfg, len(iq), dev)]
+
+        def step(x):
+            out, st[0] = bpsk_block_batch(x, cfg, st[0], tunings, **kw)
+            return out
+
+        reset()
+        step_ms, fec_ms, outs = decode_run(torch, np, dev, step, blocks,
+                                           pays, what)
+        launches = read()
+        need((st[0].counters.cpu().numpy()[:, 0] == n_blocks * rate).all(),
+             f"{what}: raw counters wrong")
+        print(f"{tag} {what}: all {len(iq)} payloads decoded bit-exact; "
+              f"bpsk_block_batch {', '.join(f'{v:.3f}' for v in step_ms)} ms "
+              f"per block; FEC drain {', '.join(f'{v:.1f}' for v in fec_ms)} "
+              f"ms per block; launches {launches}")
+        return launches, outs, st[0], blocks
+
+    # ---- general: 21 tunings, multiples of 0.1 Hz but not of 750 Hz
+    tun_g = 6000.0 + 750.0 * (np.arange(s) % 21) + 123.4
+    need(mix_mode_for(tun_g, rate, np.zeros(s, bool)) == "general",
+         "general tunings classified as another mode")
+    iq, pays = manual_signals(tun_g, 3000)
+    cfg = BpskConfig(rate=rate)
+    launches, _outs, st_g, blocks_g = counted_run(
+        cfg, iq, pays, tun_g, f"general mode ({s} streams)")
+    need(launches == want(timing_recover_batch=n_blocks),
+         f"general launches {launches}: want the timing kernel once a "
+         "block and no front-end kernel")
+
+    # ---- static: sub-0.1 Hz tunings
+    tun_s = 6000.05 + 1500.0 * np.arange(8) + 0.01 * np.arange(8)
+    need(mix_mode_for(tun_s, rate, np.zeros(8, bool)) == "static",
+         "static tunings classified as another mode")
+    iq, pays = manual_signals(tun_s, 4000)
+    launches, *_ = counted_run(cfg, iq, pays, tun_s, "static mode (8 streams)")
+    need(launches == want(timing_recover_batch=n_blocks),
+         f"static launches {launches}")
+
+    # ---- dofft: DOFFT_STREAMS (each decoded by the JAX package in
+    # tests/test_torch_tuner.py) 8 times over, unfused then fused
+    iq16, pay16 = dofft_signals(rate, n_blocks)
+    reps = s // len(iq16)
+    iq_d, pays_d = np.tile(iq16, (reps, 1)), np.tile(pay16, (reps, 1))
+    carriers = np.tile([c for c, _ in DOFFT_STREAMS], reps)
+    tun_d = np.zeros(s)
+    runs = {}
+    for fuse in (False, True):
+        cfg_d = BpskConfig(rate=rate, dofft=True, fuse_mf=fuse)
+        what = f"dofft ({s} streams{', fuse_mf' if fuse else ''})"
+        launches, outs, st_d, blocks_d = counted_run(cfg_d, iq_d, pays_d,
+                                                     tun_d, what)
+        kern = "mix_decimate_mf" if fuse else "mix_decimate"
+        need(launches == want(timing_recover_batch=n_blocks,
+                              **{kern: n_blocks}),
+             f"{what} launches {launches}: want {kern} and the timing "
+             "kernel once a block")
+        centres = st_d.fft_tuner.centre_bin.cpu().numpy()
+        off = np.abs(centres - (carriers + 1200) / 10)
+        need((off <= 15).all(), f"{what}: centre bins {centres[off > 15]} "
+             "more than 15 bins from their carrier")
+        bits = [o.bits.cpu().numpy() for o in outs]
+        need(all((b[:len(iq16)] == b[k * len(iq16):(k + 1) * len(iq16)])
+                 .all() for b in bits for k in range(reps)),
+             f"{what}: replicas of one input gave different bits")
+        runs[fuse] = (outs, st_d)
+        print(f"{tag} {what}: centre bins {centres[:len(iq16)].tolist()} "
+              f"(carrier + 1200 Hz over 10 Hz: "
+              f"{((carriers[:len(iq16)] + 1200) / 10).tolist()})")
+    # the first 8 streams through the port on the CPU
+    cfg_d = BpskConfig(rate=rate, dofft=True)
+    st_c = bpsk_init_batch(cfg_d, 8, "cpu")
+    outs_u, st_u = runs[False]
+    for b in range(n_blocks):
+        x = CF(blocks_d[b].re[:8].cpu(), blocks_d[b].im[:8].cpu())
+        out_c, st_c = bpsk_block_batch(x, cfg_d, st_c, tun_d[:8])
+        for name in ("bits", "n_bits", "n_hits", "hit_corr"):
+            need(torch.equal(getattr(out_c, name),
+                             getattr(outs_u[b], name)[:8].cpu()),
+                 f"dofft: the CPU's {name} differ from the card's in block "
+                 f"{b}")
+    need(torch.equal(st_c.fft_tuner.centre_bin,
+                     st_u.fft_tuner.centre_bin[:8].cpu()),
+         "dofft: the CPU's centre bins differ from the card's")
+    print(f"{tag} dofft: the first 8 streams on the CPU gave the card's "
+          f"bits, hits and centre bins in all {n_blocks} blocks")
+
+    # ---- mixed: 64 pattern-mode streams + 64 auto-tuned in one call
+    half = s // 2
+    tun_p = 6000.0 + 750.0 * (np.arange(half) % 21)
+    iq_p, pays_p = manual_signals(tun_p, 5000)
+    iq_m = np.concatenate([iq_p, iq_d[:half]])
+    pays_m = np.concatenate([pays_p, pays_d[:half]])
+    tun_m = np.concatenate([tun_p, np.zeros(half)])
+    flags = np.arange(s) >= half
+    need(mix_mode_for(tun_m, rate, flags) == "mixed:pattern",
+         "mixed set classified as another mode")
+    launches, _outs, st_m, _b = counted_run(
+        cfg, iq_m, pays_m, tun_m, f"mixed:pattern ({half} + {half} streams)",
+        dofft=flags)
+    need(launches == want(timing_recover_batch=n_blocks,
+                          mix_decimate=2 * n_blocks),
+         f"mixed launches {launches}: want kernel 1 twice (both front ends) "
+         "and the timing kernel once a block")
+    need((st_m.fft_tuner.centre_bin[:half] == 0).all().item(),
+         "mixed: a manual stream's tuner state advanced")
+
+    # ---- the staged spectrum step of the auto-tuned deployment
+    x1 = blocks_d[1]
+    reset()
+    spec_d, _o, _s = bpsk_block_batch_spectrum(
+        x1, BpskConfig(rate=rate, dofft=True), bpsk_init_batch(cfg, s, dev),
+        tun_d)
+    torch.cuda.synchronize()
+    staged = read()
+    need(staged == want(spectrum_fused=1, mix_decimate=1,
+                        timing_recover_batch=1),
+         f"dofft staged spectrum step launches {staged}: want kernels 4, 1 "
+         "and the timing kernel once each")
+    spec_p, _o, _s = bpsk_block_batch_spectrum(
+        x1, cfg, bpsk_init_batch(cfg, s, dev), np.full(s, 12000.0))
+    need(all(torch.equal(getattr(spec_d, k), getattr(spec_p, k))
+             for k in ("wf", "peak_db", "peak_freq")),
+         "dofft staged spectrum step: waterfall differs from pattern mode's")
+    print(f"{tag} dofft staged spectrum step (S={s}, T={rate}): launches "
+          f"{staged}; waterfall equal to the pattern-mode step's")
+
+    # ---- step times: general and dofft
+    for what, cfg_t, st0, blocks, tunings in (
+            ("general", cfg, st_g, blocks_g, tun_g),
+            ("dofft", BpskConfig(rate=rate, dofft=True), runs[False][1],
+             blocks_d, tun_d)):
+        state = [st0, 0]
+
+        def step():
+            state[0] = bpsk_block_batch(blocks[state[1] % n_blocks], cfg_t,
+                                        state[0], tunings)[1]
+            state[1] += 1
+
+        step_times(torch, step, 10, 3, tag,
+                   f"{what} step bpsk_block_batch S={s} T={rate}")
+
+    # the new front ends alone, on tensors already on the card: device busy
+    # and launches a call from torch.profiler, event time back to back,
+    # and whether a call makes the host wait for the card (a sleep kernel
+    # enqueued before it has ended when it returns)
+    high = torch.zeros(s, dtype=torch.bool, device=dev)
+    samples = rate // 10
+    m = rate // 9600
+    st_d = runs[False][1]
+    tu_g = torch.as_tensor(np.round(tun_g * 10).astype(np.int64), device=dev)
+    taps = torch.as_tensor(DS_TAPS, dtype=torch.float32, device=dev)
+    ones = torch.ones((s, 128), dtype=torch.float32, device=dev)
+
+    def general_front(x):
+        mixed, _nu = _tuner_full_mix(x, st_g.tu_phase, tu_g, rate)
+        return polyphase_decimate(mixed, taps, m, st_g.ds_tail, gain=GAIN)
+
+    def tuner(x):
+        return fft_tuner_blocks(CF(x.re.reshape(s, -1, samples),
+                                   x.im.reshape(s, -1, samples)),
+                                st_d.fft_tuner, high)
+
+    def dofft_front(x):
+        return mix_decimate(tuner(x)[0], ones, ones, taps, m, st_d.ds_tail,
+                            GAIN)
+
+    fronts = (
+        ("general front end (numerator mix + decimator)", general_front,
+         blocks_g),
+        ("FFT auto-tuner (fft_tuner_blocks)", tuner, blocks_d),
+        ("dofft front end (tuner + kernel 1)", dofft_front, blocks_d))
+    for what, fn, blocks in fronts:
+        inputs = [(x,) for x in blocks[:3]]
+        fn(*inputs[-1])
+        torch.cuda.synchronize()
+        with profiler(torch) as prof:
+            for i in range(5):
+                fn(*inputs[i % 3])
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / 5
+        ev_ms = time_ms(torch, fn, inputs, 5)
+        print(f"{tag} {what}, S={s} T={rate}: {busy:.4f} ms device busy "
+              f"and {len(kern) / 5:.0f} launches a call (profiled), "
+              f"{ev_ms:.4f} ms event-timed back to back; waits for the "
+              f"card: {waits_for_card(torch, fn, inputs[0])}")
+    state = [st_g]
+
+    def pattern_step(x):
+        state[0] = bpsk_block_batch(x, cfg, state[0], np.full(s, 12000.0))[1]
+        return state[0].tu_phase
+
+    print(f"{tag} a pattern-mode bpsk_block_batch step waits for the card: "
+          f"{waits_for_card(torch, pattern_step, (blocks_g[0],))}")
+
+
+def waits_for_card(torch, fn, args) -> bool:
+    """Whether ``fn(*args)`` returns only after work enqueued before it has
+    finished: a ~0.2 s sleep kernel, then an event, then the call; the
+    event has completed when the call returns only if the call waited."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    mark = torch.cuda.Event()
+    mark.record()
+    fn(*args)
+    waited = mark.query()
+    torch.cuda.synchronize()
+    return waited
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -3,8 +3,10 @@
 ``telemetry`` is the counterpart of ``jsdr-tpu telemetry``
 (``jsdr_tpu.app.main.cmd_telemetry``): FUNcube BPSK demodulation of a
 file (or synthetic) source in 1 s blocks, N demodulator instances (a comma
-list of tunings) batched into one call per block, AO-40 FEC decode of
-every sync hit, and the same frame and counter print-out. ``spectrum`` is
+list of tunings, in any tuning mode; ``--fft-tune`` auto-tunes with the
+FFT tuner, ``--track-high`` searches its upper half-band) batched into
+one call per block, AO-40 FEC decode of every sync hit, and the same
+frame and counter print-out. ``spectrum`` is
 the counterpart of ``jsdr-tpu spectrum`` (``cmd_spectrum``): the dBFS PSD
 and peak of every 0.1 s block (the fused spectrum kernel where the block
 size fits it), with the same print-out, ASCII plot and PNG renderings.
@@ -194,7 +196,7 @@ def cmd_telemetry(args) -> int:
     iq, rate = _load_iq(args, args.rate)
     tunings = np.asarray([float(t) for t in str(args.tuning).split(",")])
     n_demods = len(tunings)
-    dofft, _track_high = _telem_flags(args, n_demods)
+    dofft, track_high = _telem_flags(args, n_demods)
     cfg = BpskConfig(rate=rate, tuning=float(tunings[0]))
     st = bpsk_init_batch(cfg, n_demods, dev)
     ck_meta = {"rate": int(rate), "n_demods": int(n_demods)}
@@ -210,7 +212,8 @@ def cmd_telemetry(args) -> int:
     for b in range(len(iq) // block):
         blk = from_complex(np.broadcast_to(iq[b * block:(b + 1) * block],
                                            (n_demods, block)), dev)
-        out, st = bpsk_block_batch(blk, cfg, st, tunings, dofft=dofft)
+        out, st = bpsk_block_batch(blk, cfg, st, tunings, dofft=dofft,
+                                   track_high=track_high)
         n_hits = out.n_hits.cpu().numpy()
         for s in range(n_demods):
             nh = int(n_hits[s])
@@ -284,7 +287,7 @@ def main(argv=None):
     tl.add_argument("--tuning", default="12000",
                     help="NCO Hz; comma list runs N demod instances")
     tl.add_argument("--fft-tune", action="store_true",
-                    help="FFT auto-tune (not ported yet: raises)")
+                    help="FFT auto-tune (doBufferFFT)")
     tl.add_argument("--track-high", action="store_true",
                     help="auto-tune searches the upper half-band")
     tl.add_argument("--checkpoint", help="save stream state here")

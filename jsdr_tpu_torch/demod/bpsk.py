@@ -1,37 +1,50 @@
 """FUNcube 1200 bps BPSK telemetry demodulator — the PyTorch port of
-:mod:`jsdr_tpu.demod.bpsk` ("pattern" tuning mode).
+:mod:`jsdr_tpu.demod.bpsk`, every tuning mode of its front end.
 
 Per block of [S, T] stream rows (T a multiple of 8*decim):
 
-1. tuner NCO mix + 27-tap decimating FIR, x 0.9*32768 — ONE kernel,
-   :func:`jsdr_tpu_torch.ops.mix_decimate.mix_decimate` (the NCO's
-   quantized-table index sequence is 128-periodic for every tuning that
-   ``pattern_mix_ok`` accepts, e.g. any multiple of 750 Hz at 96 kS/s);
+1. the front end, picked per batch as the reference's
+   ``_front_dispatch`` picks it (:func:`bpsk_block_batch` names the mode):
+
+   - "pattern" (every tuning's quantized NCO index sequence is
+     128-periodic, ``pattern_mix_ok``: e.g. any multiple of 750 Hz at
+     96 kS/s): tuner mix + 27-tap decimating FIR x 0.9*32768 as ONE
+     kernel, :func:`jsdr_tpu_torch.ops.mix_decimate.mix_decimate`;
+   - "general" (tunings that are multiples of 0.1 Hz): the exact
+     integer-numerator mix at full length, then
+     :func:`jsdr_tpu_torch.ops.fir.polyphase_decimate` (plain torch, as
+     the reference's is plain XLA);
+   - "static" (sub-0.1 Hz tunings): the float64 host ramp mix, then the
+     same decimator;
+   - "dofft" (the FFT auto-tuner, :mod:`jsdr_tpu_torch.demod.fft_tuner`):
+     its real-only feed through kernel 1 with an all-ones pattern;
+   - "mixed:<manual mode>": both front ends, selected per stream by its
+     dofft flag;
 2. 1200 Hz VCO mix (exactly pi/4 per decimated sample) and the 65-tap
    matched filter with its carried tail (plain torch); with
-   ``BpskConfig.fuse_mf`` steps 1 and 2 are ONE kernel,
-   :func:`jsdr_tpu_torch.ops.mix_decimate_mf.mix_decimate_mf`, and the
-   decimated stream never reaches device memory;
-3. bit-timing recovery — the second kernel,
+   ``BpskConfig.fuse_mf`` in the modes the reference fuses (dofft,
+   pattern, mixed:pattern) steps 1 and 2 are ONE kernel,
+   :func:`jsdr_tpu_torch.ops.mix_decimate_mf.mix_decimate_mf`;
+3. bit-timing recovery — the timing kernel,
    :func:`jsdr_tpu_torch.ops.timing_kernel.timing_recover_batch`;
 4. bit compaction, stride-80 sync correlation at every bit position and
    soft-window extraction (plain torch).
 
 :func:`bpsk_block_batch_spectrum` adds the display spectrum to the same
 step: one kernel (``ops.spectrum_front``) reads the input once for the
-waterfall and for step 1, or, where the reference's rule says so, the
-staged pair runs (``ops.spectrum_fused.spectrum_waterfall``, then
-:func:`bpsk_block_batch`).
+waterfall and for step 1, or, where the reference's rule says so (every
+mode but pattern, and ``fuse_mf``), the staged pair runs
+(``ops.spectrum_fused.spectrum_waterfall``, then :func:`bpsk_block_batch`).
 
 Values, layouts and carried state match the reference; where the JAX code
 avoids TPU gathers (one-hot row matmuls, masked reductions) this port
-indexes directly. The "general" and "static" mix modes, the FFT
-auto-tuner (``dofft``) and ``compat_scan`` are not ported yet and raise
+indexes directly. ``compat_scan`` is not ported yet and raises
 ``NotImplementedError`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -41,13 +54,14 @@ import torch.nn.functional as F
 from ..fec.tables import SYNC_VECTOR
 
 from ..ops.cplx import CF
-from ..ops.fir import fir_apply_streaming
+from ..ops.fir import fir_apply_streaming, polyphase_decimate
 from ..ops.mix_decimate import mix_decimate
 from ..ops.mix_decimate_mf import mix_decimate_mf
 from ..ops.spectrum import bin_to_hz
 from ..ops.spectrum_front import sf_geometry, spectrum_front_fused
 from ..ops.spectrum_fused import spectrum_waterfall
 from ..ops.timing_kernel import timing_recover_batch
+from .fft_tuner import FftTunerState, fft_tuner_blocks, fft_tuner_init
 
 # Constants copied from jsdr_tpu/demod/bpsk.py:52-107 (that module imports
 # jax); tests/test_torch_constants.py holds them equal to the reference.
@@ -111,12 +125,14 @@ class BpskConfig(NamedTuple):
     rate: int = 96000          # input sample rate
     tuning: float = 12000.0    # NCO Hz for streams without their own
     max_hits_per_block: int = 4
-    dofft: bool = False        # FFT auto-tune front end (not ported)
+    dofft: bool = False        # FFT auto-tune front end (doBufferFFT)
     track_high: bool = False   # auto-tune searches the upper half-band
     compat_scan: bool = False  # per-sample timing scan (not ported)
     fuse_mf: bool = False      # VCO + matched filter in the front-end
-                               # kernel (mix_decimate_mf); the spectrum
-                               # step then takes its staged branch
+                               # kernel (mix_decimate_mf) where the
+                               # reference fuses (dofft, pattern,
+                               # mixed:pattern); the spectrum step then
+                               # takes its staged branch
 
     @property
     def decim(self) -> int:
@@ -130,14 +146,6 @@ class TimingState(NamedTuple):
     new_peak: torch.Tensor  # [S] i32 dmNewPeak
     e_out: torch.Tensor     # [S] f32 dmEnergyOut
     last_iq: torch.Tensor   # [S, 2] f32 dmLastIQ
-
-
-class FftTunerState(NamedTuple):
-    """Auto-tune EMA state (fields of ``jsdr_tpu.demod.fft_tuner.
-    FftTunerState``); carried unchanged until dofft is ported."""
-    ave_peak_power: torch.Tensor  # [S] f32
-    ave_centre_bin: torch.Tensor  # [S] f32
-    centre_bin: torch.Tensor      # [S] i32
 
 
 class BpskState(NamedTuple):
@@ -178,7 +186,7 @@ def bpsk_init_batch(cfg: BpskConfig, n_streams: int,
             new_peak=z(dtype=i32), e_out=z() + 1.0, last_iq=z(2)),
         ring=z(FEC_BITS - 1, dtype=torch.int8),
         counters=z(4, dtype=i32),
-        fft_tuner=FftTunerState(z(), z(), z(dtype=i32)),
+        fft_tuner=fft_tuner_init(n_streams, device),
     )
 
 
@@ -285,6 +293,60 @@ def pattern_mix_ok(tunings, rate: int) -> bool:
     return all((128 * int(v)) % (NU_SCALE * rate) == 0 for v in nu)
 
 
+def _tuner_full_mix(iq: CF, nu0: torch.Tensor, tu: torch.Tensor, rate: int):
+    """Full-length quantized-table tuner mix (mi = i*cos, mq = q*sin — the
+    reference's non-complex quirk, :389-390) from exact numerators, for
+    0.1 Hz-multiple tunings of ANY period (the "general" mode,
+    jsdr_tpu/demod/bpsk.py:298-313). iq: [S, T]; nu0, tu: [S], tu in
+    0.1 Hz units; streams with tu <= 0 pass through. Returns (mixed, the
+    carried numerator)."""
+    den = NU_SCALE * rate
+    n = iq.shape[-1]
+    c, s = _num_to_cossin(nco_numerators(nu0.long(), tu, n, den, start=1),
+                          den)
+    on = (tu > 0)[:, None]
+    mixed = CF(iq.re * torch.where(on, c, 1.0),
+               iq.im * torch.where(on, s, 1.0))
+    return mixed, _nco_advance(nu0, tu, rate, n)
+
+
+@functools.lru_cache(maxsize=4)
+def _static_ramp(tunings: tuple, n: int, rate: int,
+                 device: torch.device) -> torch.Tensor:
+    """[S, n] float64 host ramps (t+1)*tuning mod rate, rounded to
+    float32, for the static mode (constant for a tuning set and block
+    length, so kept on the device between blocks)."""
+    t = np.arange(1, n + 1, dtype=np.float64)
+    ramp = np.stack([np.mod(t * tun, rate) for tun in tunings])
+    return torch.as_tensor(ramp.astype(np.float32), device=device)
+
+
+def _tuner_mix(iq: CF, nu0: torch.Tensor, tunings: tuple, rate: int):
+    """The "static" mix for sub-0.1 Hz tunings (jsdr_tpu/demod/bpsk.py:
+    316-335), all streams at once: a float64 host ramp per stream, then
+    the reference's float32 arithmetic op for op (nu + ramp, mod rate,
+    * 256/rate, truncate, % 256), so the table index agrees at a boundary
+    too. The carried numerator is in 0.1 Hz units like every other
+    mode's; streams with tuning <= 0 pass through with it unchanged.
+    Returns (mixed, carried numerator)."""
+    n = iq.shape[-1]
+    dev = iq.re.device
+    nu_r = nu0.to(torch.float32) / float(NU_SCALE)
+    nums = torch.fmod(nu_r[:, None] + _static_ramp(tunings, n, rate, dev),
+                      float(rate))
+    idx = ((nums * float(np.float32(SINCOS_SIZE / rate))).to(torch.int32)
+           % SINCOS_SIZE)
+    ang = idx.to(torch.float32) * float(np.float32(TWO_PI / SINCOS_SIZE))
+    tun = np.asarray(tunings, np.float64)
+    on = torch.as_tensor(tun > 0.0, device=dev)
+    mixed = CF(iq.re * torch.where(on[:, None], torch.cos(ang), 1.0),
+               iq.im * torch.where(on[:, None], torch.sin(ang), 1.0))
+    adv = torch.as_tensor(np.mod(n * tun, rate).astype(np.float32),
+                          device=dev)
+    nu_out = torch.fmod(nu_r + adv, float(rate)) * float(NU_SCALE)
+    return mixed, torch.where(on, nu_out, nu0)
+
+
 # ---------------------------------------------------------------------------
 # Decimated-domain stages
 # ---------------------------------------------------------------------------
@@ -380,11 +442,11 @@ def soft_frames_from_bits(bits: torch.Tensor, n_bits: torch.Tensor,
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to jsdr_tpu_torch yet (ROADMAP.md, queue 2); "
+        f"{what} is not ported to jsdr_tpu_torch yet (ROADMAP.md, queue 1); "
         "use jsdr_tpu for it")
 
 
-def _pattern_tunings(iq: CF, cfg: BpskConfig, tunings, dofft) -> np.ndarray:
+def _block_tunings(iq: CF, cfg: BpskConfig, tunings) -> np.ndarray:
     """Check a block and its configuration against what the port runs;
     returns the per-stream tunings in Hz [S] (default cfg.tuning)."""
     s, t_len = iq.shape
@@ -396,24 +458,140 @@ def _pattern_tunings(iq: CF, cfg: BpskConfig, tunings, dofft) -> np.ndarray:
             "8-sample bit periods)")
     if cfg.compat_scan:
         raise _not_ported("compat_scan (the per-sample timing scan)")
-    if np.any(cfg.dofft if dofft is None else dofft):
-        raise _not_ported("dofft (the FFT auto-tune front end)")
     if tunings is None:
         tunings = np.full(s, cfg.tuning, np.float64)
     tun = np.asarray(tunings, np.float64).reshape(-1)
     if tun.shape[0] != s:
         raise ValueError(f"{tun.shape[0]} tunings for {s} streams")
-    if not pattern_mix_ok(tun, cfg.rate):
-        raise _not_ported(
-            f"tunings {tun.tolist()} at {cfg.rate} S/s need the 'general' "
-            "or 'static' mix mode (pattern mode needs 128*tuning*10 to be "
-            "a multiple of 10*rate)")
     return tun
 
 
+def mix_mode_for(tunings, rate: int, dofft) -> str:
+    """The front end a batch takes (jsdr_tpu/demod/bpsk.py:1150-1195):
+    the manual mode is "pattern" when ``pattern_mix_ok``, "general" when
+    every tuning is a multiple of 0.1 Hz, "static" otherwise; then
+    "dofft" when every stream auto-tunes, "mixed:<manual mode>" when some
+    do, the manual mode when none does. ``dofft``: [S] bools."""
+    if tunings_to_nu(tunings) is None:
+        manual = "static"
+    elif pattern_mix_ok(tunings, rate):
+        manual = "pattern"
+    else:
+        manual = "general"
+    dofft = np.asarray(dofft, bool)
+    if dofft.all():
+        return "dofft"
+    return f"mixed:{manual}" if dofft.any() else manual
+
+
+def _front_manual(iq: CF, states: BpskState, tun: np.ndarray, mode: str,
+                  rate: int, fuse_mf: bool):
+    """Manual-tune front end (RxMixTuner + decimator, :366-397, 466-492)
+    in the pattern, general or static mode (jsdr_tpu/demod/bpsk.py:
+    844-889). Returns (x, ds_tail, mf_tail, tu_phase): x is the decimated
+    stream, or the matched-filter output with its tail under ``fuse_mf``
+    (pattern mode only; mf_tail is None otherwise)."""
+    dev = iq.re.device
+    m = rate // DOWN_SAMPLE_RATE
+    t_len = iq.shape[-1]
+    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    if mode == "static":
+        mixed, tu_phase = _tuner_mix(iq, states.tu_phase,
+                                     tuple(float(t) for t in tun), rate)
+        ds, ds_tail = polyphase_decimate(mixed, taps, m, states.ds_tail,
+                                         gain=HOWARD_FUDGE_FACTOR)
+        return ds, ds_tail, None, tu_phase
+    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
+    if mode == "general":
+        mixed, tu_phase = _tuner_full_mix(iq, states.tu_phase, tu, rate)
+        ds, ds_tail = polyphase_decimate(mixed, taps, m, states.ds_tail,
+                                         gain=HOWARD_FUDGE_FACTOR)
+        return ds, ds_tail, None, tu_phase
+    assert mode == "pattern", mode
+    cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, rate)
+    tu_phase = _nco_advance(states.tu_phase, tu, rate, t_len)
+    if fuse_mf:
+        # front end + VCO + matched filter: one kernel (:857-864, :973-979)
+        vco_cos, vco_sin = _vco_pattern(states.vco_idx)
+        mf, ds_tail, mf_tail = mix_decimate_mf(
+            iq, cos_pat, sin_pat, taps, m, states.ds_tail, vco_cos,
+            vco_sin, _mf_taps(dev), states.mf_tail, HOWARD_FUDGE_FACTOR)
+        return mf, ds_tail, mf_tail, tu_phase
+    ds, ds_tail = mix_decimate(iq, cos_pat, sin_pat, taps, m,
+                               states.ds_tail, HOWARD_FUDGE_FACTOR)
+    return ds, ds_tail, None, tu_phase
+
+
+def _front_dofft(iq: CF, states: BpskState, track_high: torch.Tensor,
+                 rate: int, fuse_mf: bool):
+    """FFT auto-tune front end (doBufferFFT, :406-464) for all streams
+    (jsdr_tpu/demod/bpsk.py:810-841): the tuner's real-only feed through
+    kernel 1 with an all-ones pattern, or kernel 6 under ``fuse_mf``.
+    Returns (x, ds_tail, mf_tail, tuner state) as :func:`_front_manual`
+    (tu_phase is left as it was)."""
+    dev = iq.re.device
+    m = rate // DOWN_SAMPLE_RATE
+    s, t_len = iq.shape
+    samples = rate // 10      # the reference's 0.1 s FFT cadence
+    if t_len % samples:
+        raise ValueError(
+            f"block length {t_len} is not whole 0.1 s sub-blocks of "
+            f"{samples} samples, which the FFT auto-tuner (dofft) needs")
+    feed, _centres, ft_state = fft_tuner_blocks(
+        CF(iq.re.reshape(s, -1, samples), iq.im.reshape(s, -1, samples)),
+        states.fft_tuner, track_high)
+    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    ones = torch.ones((s, 128), dtype=torch.float32, device=dev)
+    if fuse_mf:
+        vco_cos, vco_sin = _vco_pattern(states.vco_idx)
+        mf, ds_tail, mf_tail = mix_decimate_mf(
+            feed, ones, ones, taps, m, states.ds_tail, vco_cos, vco_sin,
+            _mf_taps(dev), states.mf_tail, HOWARD_FUDGE_FACTOR)
+        return mf, ds_tail, mf_tail, ft_state
+    ds, ds_tail = mix_decimate(feed, ones, ones, taps, m, states.ds_tail,
+                               HOWARD_FUDGE_FACTOR)
+    return ds, ds_tail, None, ft_state
+
+
+def _front_dispatch(iq: CF, states: BpskState, tun: np.ndarray,
+                    dofft: np.ndarray, track_high: torch.Tensor, mode: str,
+                    rate: int, fuse_mf: bool):
+    """Run the front end(s) of ``mode`` (:func:`mix_mode_for`; the
+    reference's ``_front_dispatch``, jsdr_tpu/demod/bpsk.py:893-931).
+    "mixed:<manual>" runs both front ends and takes each stream's x,
+    tails, tu_phase and tuner state from the one its dofft flag names: a
+    manual stream's tuner state never advances, an auto-tuned stream's
+    tu_phase never moves. Returns (x, ds_tail, mf_tail, tu_phase, tuner
+    state)."""
+    if mode == "dofft":
+        x, ds_tail, mf_tail, ft = _front_dofft(iq, states, track_high, rate,
+                                               fuse_mf)
+        return x, ds_tail, mf_tail, states.tu_phase, ft
+    if not mode.startswith("mixed:"):
+        x, ds_tail, mf_tail, tu_phase = _front_manual(iq, states, tun, mode,
+                                                      rate, fuse_mf)
+        return x, ds_tail, mf_tail, tu_phase, states.fft_tuner
+    x_f, tail_f, mft_f, ft_f = _front_dofft(iq, states, track_high, rate,
+                                            fuse_mf)
+    x_m, tail_m, mft_m, ph_m = _front_manual(
+        iq, states, tun, mode[len("mixed:"):], rate, fuse_mf)
+    auto = torch.as_tensor(dofft, device=iq.re.device)
+
+    def sel(a, b):
+        return torch.where(auto.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    def sel_cf(a, b):
+        return CF(sel(a.re, b.re), sel(a.im, b.im))
+
+    mf_tail = sel_cf(mft_f, mft_m) if fuse_mf else None
+    return (sel_cf(x_f, x_m), sel_cf(tail_f, tail_m), mf_tail,
+            sel(states.tu_phase, ph_m),
+            FftTunerState(*map(sel, ft_f, states.fft_tuner)))
+
+
 def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
-                ds_tail: CF, t_len: int, max_hits: int
-                ) -> Tuple[BpskBlockOut, BpskState]:
+                ds_tail: CF, ft_state: FftTunerState, t_len: int,
+                max_hits: int) -> Tuple[BpskBlockOut, BpskState]:
     """The decimated-domain stages after the front end (the counterpart of
     ``jsdr_tpu.demod.bpsk._bpsk_post_batch``): VCO mix + matched filter,
     then :func:`_post_mf_batch`."""
@@ -421,7 +599,7 @@ def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
     mf, mf_tail = fir_apply_streaming(bb, _mf_taps(ds.re.device),
                                       states.mf_tail)
     return _post_mf_batch(mf, states, tu_phase, ds_tail, mf_tail, vco_idx,
-                          t_len, max_hits)
+                          ft_state, t_len, max_hits)
 
 
 def _mf_taps(dev) -> torch.Tensor:
@@ -430,7 +608,7 @@ def _mf_taps(dev) -> torch.Tensor:
 
 def _post_mf_batch(mf: CF, states: BpskState, tu_phase: torch.Tensor,
                    ds_tail: CF, mf_tail: CF, vco_idx: torch.Tensor,
-                   t_len: int, max_hits: int
+                   ft_state: FftTunerState, t_len: int, max_hits: int
                    ) -> Tuple[BpskBlockOut, BpskState]:
     """The chain from the matched-filter output onward (the counterpart of
     ``jsdr_tpu.demod.bpsk._bpsk_post_mf_batch``): timing recovery,
@@ -457,47 +635,48 @@ def _post_mf_batch(mf: CF, states: BpskState, tu_phase: torch.Tensor,
         energies=torch.stack([e_out, hit_corr.max(dim=1).values.float()],
                              dim=1))
     new_state = BpskState(tu_phase, ds_tail, vco_idx, mf_tail, timing, ring,
-                          counters, states.fft_tuner)
+                          counters, ft_state)
     return out, new_state
 
 
 def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
-                     tunings=None, dofft=None
+                     tunings=None, dofft=None, track_high=None
                      ) -> Tuple[BpskBlockOut, BpskState]:
     """Batched telemetry chain over independent streams: [S, T] blocks.
 
     ``iq``: CF of float32 [S, T] tensors, all on one device, which the
     state must share; T a multiple of 8*cfg.decim. ``tunings``: host
     array-like [S] of per-stream NCO Hz (default cfg.tuning for every
-    stream); each must satisfy ``pattern_mix_ok`` (e.g. a multiple of
-    750 Hz at 96 kS/s). ``dofft``: host bool array-like [S]
-    (default cfg.dofft); any True raises NotImplementedError. With
-    ``cfg.fuse_mf`` the front end, VCO mix and matched filter run as one
-    kernel (``mix_decimate_mf``) instead of kernel 1 and two torch passes.
-    Returns the block's output and the carried state."""
-    t_len = iq.shape[-1]
+    stream), any values: :func:`mix_mode_for` picks the front end.
+    ``dofft`` / ``track_high``: host bool array-likes [S], the
+    per-instance FUNcube<n>-bpsk-dofft / -upper keys
+    (FUNcubeBPSKDemod.java:97-99), default cfg.dofft / cfg.track_high for
+    every stream; an auto-tuned block must be whole 0.1 s sub-blocks.
+    With ``cfg.fuse_mf`` the dofft, pattern and mixed:pattern front ends
+    run the VCO mix and matched filter in their kernel
+    (``mix_decimate_mf``); the general and static modes keep the unfused
+    chain, as in the reference (:966-967). Returns the block's output and
+    the carried state."""
+    s, t_len = iq.shape
     dev = iq.re.device
-    tun = _pattern_tunings(iq, cfg, tunings, dofft)
-    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
-
-    # front end: mix + decimate kernel
-    cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, cfg.rate)
-    tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
-    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    tun = _block_tunings(iq, cfg, tunings)
+    flags = np.broadcast_to(np.asarray(
+        cfg.dofft if dofft is None else dofft, bool), (s,)).copy()
+    high = torch.as_tensor(np.broadcast_to(np.asarray(
+        cfg.track_high if track_high is None else track_high, bool), (s,)
+    ).copy(), device=dev)
+    mode = mix_mode_for(tun, cfg.rate, flags)
+    fuse_mf = cfg.fuse_mf and mode in ("dofft", "pattern", "mixed:pattern")
     iq = CF(iq.re.contiguous(), iq.im.contiguous())
-    if cfg.fuse_mf:
-        # front end + VCO + matched filter: one kernel (:857-864, :973-979)
-        vco_cos, vco_sin = _vco_pattern(states.vco_idx)
-        mf, ds_tail, mf_tail = mix_decimate_mf(
-            iq, cos_pat, sin_pat, taps, cfg.decim, states.ds_tail, vco_cos,
-            vco_sin, _mf_taps(dev), states.mf_tail, HOWARD_FUDGE_FACTOR)
+    x, ds_tail, mf_tail, tu_phase, ft_state = _front_dispatch(
+        iq, states, tun, flags, high, mode, cfg.rate, fuse_mf)
+    if fuse_mf:
         vco_idx = ((states.vco_idx.long() + t_len // cfg.decim)
                    % SAMPLES_PER_BIT).to(torch.int32)
-        return _post_mf_batch(mf, states, tu_phase, ds_tail, mf_tail,
-                              vco_idx, t_len, cfg.max_hits_per_block)
-    ds, ds_tail = mix_decimate(iq, cos_pat, sin_pat, taps, cfg.decim,
-                               states.ds_tail, HOWARD_FUDGE_FACTOR)
-    return _post_batch(ds, states, tu_phase, ds_tail, t_len,
+        return _post_mf_batch(x, states, tu_phase, ds_tail, mf_tail,
+                              vco_idx, ft_state, t_len,
+                              cfg.max_hits_per_block)
+    return _post_batch(x, states, tu_phase, ds_tail, ft_state, t_len,
                        cfg.max_hits_per_block)
 
 
@@ -543,13 +722,13 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
     reads the input once for both the waterfall and the front end;
     otherwise the staged pair runs (``spectrum_waterfall``, then
     :func:`bpsk_block_batch`: one more read of the input) with the same
-    results; ``fuse_mf`` takes the staged branch, whose
-    :func:`bpsk_block_batch` runs the fused matched-filter kernel.
-    ``dofft``, ``compat_scan`` and tunings outside pattern mode raise
-    NotImplementedError, as in :func:`bpsk_block_batch`."""
+    results. The general, static and dofft modes (``cfg.dofft``,
+    ``cfg.track_high``) and ``fuse_mf`` take the staged branch, whose
+    :func:`bpsk_block_batch` runs their front end; ``compat_scan``
+    raises NotImplementedError, as in :func:`bpsk_block_batch`."""
     t_len = iq.shape[-1]
     dev = iq.re.device
-    tun = _pattern_tunings(iq, cfg, tunings, None)
+    tun = _block_tunings(iq, cfg, tunings)
     n = cfg.rate // 10
     iq = CF(iq.re.contiguous(), iq.im.contiguous())
     if not spectrum_step_merged(cfg, t_len, tun):
@@ -564,7 +743,8 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
     wf, mx, idx, ds, ds_tail = spectrum_front_fused(
         iq, n, cos_pat, sin_pat, taps, cfg.decim, states.ds_tail,
         gain=HOWARD_FUDGE_FACTOR, window=window)
-    out, new_states = _post_batch(ds, states, tu_phase, ds_tail, t_len,
+    out, new_states = _post_batch(ds, states, tu_phase, ds_tail,
+                                  states.fft_tuner, t_len,
                                   cfg.max_hits_per_block)
     return _waterfall_out(wf, mx, idx, cfg.rate), out, new_states
 

@@ -247,12 +247,11 @@ class TelemetryStage(Stage):
     """FUNcubeBPSKDemod + FECDecoder analog; publishes decoded frames.
 
     ``tunings``: optional list of per-instance NCO Hz — N demod tabs on
-    the same stream in one batched call (jsdr.java:479-484); each must be
-    a pattern-mode tuning (``demod.bpsk.pattern_mix_ok``). ``dofft``:
-    optional per-instance bool list (the FUNcube<n>-bpsk-dofft key,
-    FUNcubeBPSKDemod.java:97-99); dofft is not ported yet and raises when
-    a block runs. ``track_high`` (the -upper key) only steers dofft and is
-    accepted for the reference's signature.
+    the same stream in one batched call (jsdr.java:479-484), in any
+    tuning mode (``demod.bpsk.mix_mode_for``). ``dofft`` / ``track_high``:
+    optional per-instance bool lists (the FUNcube<n>-bpsk-dofft / -upper
+    keys, FUNcubeBPSKDemod.java:97-99), default ``cfg.dofft`` /
+    ``cfg.track_high``; a mixed set still runs as ONE batched call.
 
     ``sync_every``: device results are read back (counters published,
     frames decoded) only every N blocks — a per-block readback is a
@@ -283,6 +282,8 @@ class TelemetryStage(Stage):
                         else [float(t) for t in tunings])
         self.n = 1 if tunings is None else len(self.tunings)
         self.dofft = None if dofft is None else [bool(v) for v in dofft]
+        self.track_high = (None if track_high is None
+                           else [bool(v) for v in track_high])
         self.sync_every = max(1, int(sync_every))
         self.device = require_device(device)
         self._pending = []              # un-synced device block outputs
@@ -303,7 +304,7 @@ class TelemetryStage(Stage):
         from ..demod.bpsk import bpsk_block_batch
         out, self.state = bpsk_block_batch(
             _broadcast(block, self.n), self.cfg, self.state, self.tunings,
-            dofft=self.dofft)
+            dofft=self.dofft, track_high=self.track_high)
         self._pending.append(out)
         self._n_blocks += 1
         if self._n_blocks % self.sync_every == 0:
@@ -361,7 +362,9 @@ class SpectrumTelemetryStage(TelemetryStage):
     else the staged pair runs): the fft.java + FUNcubeBPSKDemod.java pair
     of every reference block, as a single production stage. Publishes
     'waterfall-line' (dB-decimated natural-order lines of instance 0) and
-    'fft-peak' at each drain, alongside the telemetry topics."""
+    'fft-peak' at each drain, alongside the telemetry topics. Auto-tune
+    follows ``cfg.dofft`` / ``cfg.track_high`` (the staged branch), as the
+    reference's stage does."""
 
     name = "spectrum-telemetry"
 

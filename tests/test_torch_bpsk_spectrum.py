@@ -51,7 +51,7 @@ def _close(got, want, rel):
                                atol=rel * float(np.abs(want).max()))
 
 
-def _assert_step_equal(out_t, st_t, out_j, st_j):
+def _assert_step_equal(out_t, st_t, out_j, st_j, ds_rel=1e-6):
     for name in ("windows", "hit_corr", "n_hits", "bits", "n_bits"):
         np.testing.assert_array_equal(getattr(out_t, name).numpy(),
                                       np.asarray(getattr(out_j, name)),
@@ -65,7 +65,7 @@ def _assert_step_equal(out_t, st_t, out_j, st_j):
         np.testing.assert_array_equal(getattr(st_t.timing, name),
                                       np.asarray(getattr(st_j.timing, name)))
     for p in ("re", "im"):
-        _close(getattr(st_t.ds_tail, p), getattr(st_j.ds_tail, p), 1e-6)
+        _close(getattr(st_t.ds_tail, p), getattr(st_j.ds_tail, p), ds_rel)
         _close(getattr(st_t.mf_tail, p), getattr(st_j.mf_tail, p), 1e-5)
     _close(st_t.timing.e_ema, st_j.timing.e_ema, 1e-5)
     _close(st_t.timing.last_iq, st_j.timing.last_iq, 1e-5)
@@ -173,6 +173,8 @@ def _jax_branch(monkeypatch, cfg, t_len, tunings):
     (192000, 96000, [12000.0], {}),
     (192000, 38400, [9000.0], {}),
     (96000, 192000, [12345.0], {}),
+    (96000, 192000, [1200.0], {}),
+    (96000, 192000, [12000.05], {}),
     (96000, 192000, [12000.0], {"dofft": True}),
     (96000, 192000, [12000.0], {"fuse_mf": True}),
     (96000, 192000, [12000.0], {"compat_scan": True}),
@@ -185,15 +187,70 @@ def test_eligibility_matches_jax(monkeypatch, rate, t_len, tunings, flags):
             == _jax_branch(monkeypatch, cfg, t_len, np.asarray(tunings)))
 
 
-def test_unported_modes_raise():
+def test_what_still_raises():
+    """Every tuning mode takes a branch now; compat_scan (not ported) and a
+    block that is not whole bit periods raise."""
     cfg = TB.BpskConfig(rate=96000)
     st = TB.bpsk_init_batch(cfg, 1, "cpu")
     x = CF(torch.zeros(1, 38400), torch.zeros(1, 38400))
-    with pytest.raises(NotImplementedError, match="general"):
-        TB.bpsk_block_batch_spectrum(x, cfg, st, [12345.0])
-    for flag in ("dofft", "compat_scan"):
-        with pytest.raises(NotImplementedError, match=flag):
-            TB.bpsk_block_batch_spectrum(x, cfg._replace(**{flag: True}), st)
+    for tun, flags in ((12345.0, {}), (12000.05, {}), (12000.0,
+                                                      {"dofft": True})):
+        TB.bpsk_block_batch_spectrum(x, cfg._replace(**flags), st, [tun])
+    with pytest.raises(NotImplementedError, match="compat_scan"):
+        TB.bpsk_block_batch_spectrum(x, cfg._replace(compat_scan=True), st)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        TB.bpsk_block_batch_spectrum(CF(x.re[:, :38360], x.im[:, :38360]),
+                                     cfg, st)
+
+
+@pytest.mark.parametrize("tunings,flags", [
+    ([12000.5, 1200.0], {}),                       # general
+    ([12000.0, 12000.0], {"dofft": True}),          # dofft
+    ([12000.0, 12000.0], {"dofft": True, "track_high": True}),
+])
+def test_staged_step_in_every_mode_matches_jax(tunings, flags):
+    """The general and dofft (lower and upper half-band) deployments take
+    the staged branch in both packages, 1 s blocks chained over the
+    frame: waterfalls, peaks, decisions, state and the payload as in
+    test_spectrum_step_matches_jax; the waterfall is the pattern-mode
+    step's, bit for bit, since it does not depend on the tuner."""
+    rate, block = 96000, 96000
+    payload, iq = _frame(rate, block)
+    cfg = JB.BpskConfig(rate=rate, tuning=tunings[0], **flags)
+    tcfg = TB.BpskConfig(rate=rate, tuning=tunings[0], **flags)
+    assert not TB.spectrum_step_merged(tcfg, 192000, np.asarray(tunings))
+    st_j = jax.tree.map(np.asarray, JB.bpsk_init_batch(cfg, 2))
+    st_t = TB.state_from_numpy(st_j, "cpu")
+    st_p = TB.bpsk_init_batch(TB.BpskConfig(rate=rate), 2, "cpu")
+    payloads = []
+    for b in range(iq.shape[1] // block):
+        blk = iq[:, b * block:(b + 1) * block]
+        spec_j, out_j, st_j = JB.bpsk_block_batch_spectrum(
+            blk, cfg, st_j, np.asarray(tunings), use_pallas=False)
+        st_j = jax.tree.map(np.asarray, st_j)
+        spec_t, out_t, st_t = TB.bpsk_block_batch_spectrum(
+            _cf(blk), tcfg, st_t, tunings)
+        spec_p, _out, st_p = TB.bpsk_block_batch_spectrum(
+            _cf(blk), TB.BpskConfig(rate=rate), st_p)
+        for name in ("wf", "peak_db", "peak_freq"):
+            assert torch.equal(getattr(spec_t, name), getattr(spec_p, name))
+        np.testing.assert_allclose(spec_t.wf.numpy(), np.asarray(spec_j.wf),
+                                   rtol=0, atol=0.2)
+        np.testing.assert_allclose(spec_t.peak_db.numpy(),
+                                   np.asarray(spec_j.peak_db), atol=1e-3)
+        np.testing.assert_array_equal(spec_t.peak_freq.numpy(),
+                                      np.asarray(spec_j.peak_freq))
+        _assert_step_equal(out_t, st_t, out_j, st_j,
+                           ds_rel=5e-6 if flags else 1e-6)
+        np.testing.assert_array_equal(
+            st_t.fft_tuner.centre_bin.numpy(),
+            np.asarray(st_j.fft_tuner.centre_bin))
+        nh = int(out_t.n_hits[0])
+        if nh:
+            res = fec_decode(out_t.windows[0, :nh])
+            payloads += [bytes(p) for ok, p in
+                         zip(res.ok.numpy(), res.payload.numpy()) if ok]
+    assert payloads == [payload.tobytes()] * (not flags.get("track_high"))
 
 
 def test_fuse_mf_takes_the_staged_branch():

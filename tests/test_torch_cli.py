@@ -124,3 +124,71 @@ def test_cli_telemetry_stream_blocks_and_device_convert(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="--mesh 2x4"):
         main(["telemetry", f"pipe:{path}", "--mesh", "2x4", "--device",
               "cpu"])
+
+
+def _auto_capture(tmp_path):
+    """A noisy capture carrying one frame in each half-band of the
+    auto-tuner's search (11.9 and 30 kHz), in whole 1 s blocks."""
+    rng = np.random.default_rng(23)
+    pay = rng.integers(0, 256, (2, 256), dtype=np.uint8)
+    sig = sum(synth_bpsk_stream(pay[i:i + 1], rate=96000, carrier_offset=c,
+                                preamble_bits=400, amplitude=0.4,
+                                noise_rms=0.15, seed=i)
+              for i, c in enumerate((11900.0, 30000.0)))
+    sig = np.concatenate([sig, np.zeros((-len(sig)) % 96000, np.complex64)])
+    path = tmp_path / "auto.raw"
+    path.write_bytes(complex_to_s16le(sig))
+    return path, pay
+
+
+def _rows(payload):
+    return [f"  {off:3d}: " + " ".join(f"{v:02x}" for v in
+                                       payload[off:off + 16])
+            for off in range(0, 256, 16)]
+
+
+@pytest.mark.parametrize("flags,frame,n_frames", [
+    (["--tuning", "0", "--fft-tune"], 0, 1),
+    (["--tuning", "0", "--fft-tune", "--track-high"], 1, 1),
+    (["--tuning", "11900,12000.5"], 0, 2),            # general
+    (["--tuning", "11900.05"], 0, 1),                 # static
+])
+def test_cli_telemetry_every_tuning_mode_matches_jax(tmp_path, capsys,
+                                                     flags, frame, n_frames):
+    """``telemetry`` on the file path in every tuning mode, ``--fft-tune``
+    and ``--track-high`` included: the same print-out, line for line, as
+    ``jsdr-tpu telemetry``, with the frame of the searched half-band (or
+    the tuned carrier) decoded."""
+    from jsdr_tpu.app.main import main as jax_main
+
+    path, pay = _auto_capture(tmp_path)
+    assert main(["telemetry", f"file:{path}", *flags, "--device",
+                 "cpu"]) == 0
+    got = capsys.readouterr().out
+    jax_main(["--cpu", "telemetry", f"file:{path}", *flags])
+    want = capsys.readouterr().out
+    assert got == want
+    for row in _rows(pay[frame]):
+        assert row in got
+    assert got.strip().endswith(f"frames={n_frames}")
+
+
+def test_cli_telemetry_stream_auto_tune(tmp_path, capsys):
+    """The streaming path (a ``pipe:`` source, the Session) with
+    ``--fft-tune --track-high``: the upper half-band's frame, printed as
+    ``jsdr-tpu`` prints it."""
+    from jsdr_tpu.app.main import main as jax_main
+
+    path, pay = _auto_capture(tmp_path)
+    args = ["telemetry", f"pipe:{path}", "--tuning", "0", "--fft-tune",
+            "--track-high"]
+    assert main([*args, "--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()
+    jax_main(["--cpu", *args])
+    want = capsys.readouterr().out.splitlines()
+    frames = [line for line in got if line.startswith("demod")]
+    assert frames == [line for line in want if line.startswith("demod")]
+    assert frames == ["demod0@0Hz corr=65 ok=True channel_errors=0"]
+    assert got[-1] == want[-1] == "5 blocks streamed, frames=1, dropped=none"
+    for row in _rows(pay[1]):
+        assert row in got

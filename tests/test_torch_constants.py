@@ -1,8 +1,9 @@
 """The port's copied constants, its JAX-free import graph, and device
 selection.
 
-``jsdr_tpu_torch.demod.bpsk`` copies the demodulator constants of
-``jsdr_tpu.demod.bpsk`` (that module imports jax); they must stay equal.
+``jsdr_tpu_torch.demod.bpsk``, ``demod.fft_tuner`` and ``ops.nco`` copy the
+constants of their ``jsdr_tpu`` counterparts (those modules import jax);
+they must stay equal.
 The port must never import jax: the machine that runs it on the GPU has
 none."""
 
@@ -15,7 +16,11 @@ import pytest
 import torch
 
 from jsdr_tpu.demod import bpsk as JB
+from jsdr_tpu.demod import fft_tuner as JT
+from jsdr_tpu.ops import nco as JN
 from jsdr_tpu_torch.demod import bpsk as TB
+from jsdr_tpu_torch.demod import fft_tuner as TT
+from jsdr_tpu_torch.ops import nco as TN
 from jsdr_tpu_torch.runtime import device as D
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,10 +37,22 @@ def test_copied_constants_equal_reference(name):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("mods,name", [
+    ((TT, JT), n) for n in ("PSD_AVG", "PSD_INV", "SLICE_HALF", "BOX_HALF",
+                            "EDGE", "MIN_CENTRE")] + [
+    ((TN, JN), n) for n in ("SINCOS_SIZE", "TWO_PI")])
+def test_tuner_and_nco_constants_equal_reference(mods, name):
+    got, want = (getattr(m, name) for m in mods)
+    assert type(got) is type(want) or float(got) == float(want)
+    assert got == want
+    assert TT.FftTunerState._fields == JT.FftTunerState._fields
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             "import jsdr_tpu_torch.demod.bpsk, jsdr_tpu_torch.fec.decoder, "
-            "jsdr_tpu_torch.app.main\n"
+            "jsdr_tpu_torch.app.main, jsdr_tpu_torch.demod.fft_tuner, "
+            "jsdr_tpu_torch.ops.nco\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

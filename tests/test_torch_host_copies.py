@@ -187,7 +187,7 @@ def test_verbatim_copy_equals_the_reference(rel):
     assert _code(ROOT / "jsdr_tpu_torch" / rel) == _code(ROOT / "jsdr_tpu"
                                                           / rel)
     for new in ("runtime/executor.py", "runtime/state.py",
-                "io/convert_device.py"):
+                "io/convert_device.py", "ops/nco.py", "demod/fft_tuner.py"):
         assert ROOT / "jsdr_tpu_torch" / new in SCANNED
 
 

@@ -343,3 +343,129 @@ def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):
     assert first + second == frames and len(frames) >= 1
     for a, b in zip(tree_leaves(resumed), tree_leaves(whole)):
         assert torch.equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _auto_tune_chunks():
+    """Raw int16 chunks of one noisy stream carrying two frames, one in
+    each half-band of the auto-tuner's search (11.9 and 30 kHz), and the
+    payloads."""
+    rng = np.random.default_rng(19)
+    pay = rng.integers(0, 256, (2, 256), dtype=np.uint8)
+    sig = sum(sources.synth_bpsk_stream(pay[i:i + 1], rate=96000,
+                                        carrier_offset=c, preamble_bits=400,
+                                        amplitude=0.4, noise_rms=0.15,
+                                        seed=i)
+              for i, c in enumerate((11900.0, 30000.0)))
+    sig = np.concatenate([sig, np.zeros((-len(sig)) % 96000, np.complex64)])
+    raw = np.frombuffer(j_convert.complex_to_s16le(sig), "<i2")
+    return [raw[i:i + 64000] for i in range(0, len(raw), 64000)], pay
+
+
+# per instance: (tuning, dofft, track_high): the lower and upper half-band
+# auto-tuners and a manual instance in the general mode (mixed:general)
+AUTO_INSTANCES = ((0.0, True, False), (0.0, True, True), (11900.0, False,
+                                                         False))
+
+
+def test_telemetry_stage_auto_tune_matches_the_jax_session():
+    """TelemetryStage(dofft=..., track_high=...) forwards both flags per
+    instance: the same frames (instance, corr, ok, errors, payload) and
+    counters as the JAX Session's stage, each frame decoded by the
+    instance whose half-band holds it, and the same tuner centre bins."""
+    from jsdr_tpu.demod.bpsk import BpskConfig as JConfig
+    from jsdr_tpu.runtime.executor import Session as JSession
+    from jsdr_tpu.runtime.executor import TelemetryStage as JTelemetryStage
+
+    chunks, pay = _auto_tune_chunks()
+    tun, dofft, high = (list(v) for v in zip(*AUTO_INSTANCES))
+    got, stages = [], []
+    for cls, stage_cls, cfg, kw in (
+            (Session, TelemetryStage, BpskConfig(rate=96000),
+             {"device": "cpu"}),
+            (JSession, JTelemetryStage, JConfig(rate=96000), {})):
+        s = cls(source=iter(chunks), block_samples=96000, **kw)
+        got.append(_listen(s, "telemetry-frame", "telemetry-counters"))
+        stages.append(stage_cls(cfg, tun, dofft=dofft, track_high=high,
+                                sync_every=2, **kw))
+        s.run([stages[-1]])
+        assert s.dropped_blocks == {}
+    port, ref = got
+    assert port["telemetry-counters"] == ref["telemetry-counters"]
+    assert len(port["telemetry-frame"]) == len(ref["telemetry-frame"])
+    for p, r in zip(port["telemetry-frame"], ref["telemetry-frame"]):
+        assert {k: v for k, v in p.items() if k != "payload"} == {
+            k: v for k, v in r.items() if k != "payload"}
+        assert np.array_equal(p["payload"], r["payload"])
+    ok = sorted((f["demod"], f["payload"].tobytes())
+                for f in port["telemetry-frame"] if f["ok"])
+    assert ok == [(0, pay[0].tobytes()), (1, pay[1].tobytes()),
+                  (2, pay[0].tobytes())]
+    np.testing.assert_array_equal(
+        stages[0].state.fft_tuner.centre_bin.numpy(),
+        np.asarray(stages[1].state.fft_tuner.centre_bin))
+    assert stages[0].state.fft_tuner.centre_bin[2] == 0     # manual
+
+
+def test_checkpoint_mid_auto_tune_resumes_in_either_package(tmp_path):
+    """A checkpoint written after 2 blocks of the auto-tune instances and
+    loaded by a new Session ends with the frames and state of an
+    uninterrupted run (bit for bit); the JAX package loads the same file
+    into its state, leaf for leaf, and the port loads the JAX Session's
+    checkpoint at that point with equal decisions and tuner state."""
+    import jax
+    from jsdr_tpu.demod.bpsk import BpskConfig as JConfig
+    from jsdr_tpu.demod.bpsk import bpsk_init_batch as j_init
+    from jsdr_tpu.runtime.executor import Session as JSession
+    from jsdr_tpu.runtime.executor import TelemetryStage as JTelemetryStage
+    from jsdr_tpu.runtime.state import load_state as j_load
+    from jsdr_tpu_torch.runtime.state import load_state, tree_leaves
+
+    chunks, _pay = _auto_tune_chunks()
+    raw = np.concatenate(chunks)
+    tun, dofft, high = (list(v) for v in zip(*AUTO_INSTANCES))
+    cfg = BpskConfig(rate=96000, fuse_mf=True)
+    meta = {"rate": 96000, "n_demods": len(tun)}
+
+    def run(data, path, resume=False, save=False):
+        stage = TelemetryStage(cfg, tun, dofft=dofft, track_high=high,
+                               sync_every=2, device="cpu")
+        s = Session(source=iter([data]), block_samples=96000,
+                    checkpoint_path=path, checkpoint_meta=meta,
+                    device="cpu")
+        if resume:
+            s.load_checkpoint([stage])
+        frames = _listen(s, "telemetry-frame")["telemetry-frame"]
+        s.run([stage])
+        if save:
+            s.save_checkpoint([stage])
+        return stage.state, [(f["demod"], f["ok"], f["payload"].tobytes())
+                             for f in frames]
+
+    k = 2 * 96000 * 2                       # int16 values of 2 blocks
+    ck = tmp_path / "ck.npz"
+    whole, frames = run(raw, tmp_path / "unused.npz")
+    mid, first = run(raw[:k], ck, save=True)
+    resumed, second = run(raw[k:], ck, resume=True)
+    assert first + second == frames and len(frames) >= 2
+    for a, b in zip(tree_leaves(resumed), tree_leaves(whole)):
+        assert torch.equal(a, b)
+
+    j_like = {"telemetry": j_init(JConfig(rate=96000), len(tun))}
+    j_state = j_load(ck, j_like, expect_meta=meta)["telemetry"]
+    for a, b in zip(jax.tree.leaves(j_state), tree_leaves(mid)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+    jstage = JTelemetryStage(JConfig(rate=96000, fuse_mf=True), tun,
+                             dofft=dofft, track_high=high, sync_every=2)
+    js = JSession(source=iter([raw[:k]]), block_samples=96000,
+                  checkpoint_path=tmp_path / "jax.npz", checkpoint_meta=meta)
+    js.run([jstage])
+    js.save_checkpoint([jstage])
+    like = {"telemetry": TelemetryStage(cfg, tun, device="cpu").state}
+    got = load_state(tmp_path / "jax.npz", like, expect_meta=meta)
+    got = got["telemetry"]
+    for name in ("counters", "ring", "vco_idx", "tu_phase"):
+        assert torch.equal(getattr(got, name), getattr(mid, name)), name
+    for a, b in zip(got.fft_tuner[1:], mid.fft_tuner[1:]):
+        assert torch.equal(a, b)
