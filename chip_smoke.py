@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from the checkout's sources, holds each
 against its plain PyTorch version on the card, and drives the port's
-three main paths: the FUNcube telemetry decode (``bpsk_block_batch`` +
+main paths: the FUNcube telemetry decode (``bpsk_block_batch`` +
 ``fec_decode``) over the committed goldens and over 128 concurrent
 demodulator streams at 96 kS/s (phases 5-6); the flagship spectrum +
 telemetry step (``bpsk_block_batch_spectrum``) over 128 streams in 4.8 s
@@ -17,10 +17,13 @@ demodulator instances with the fused matched filter on one 96 kS/s
 stream of raw int16 chunks, beside the PSD + waterfall stage, with a
 checkpoint and resume; phase 11); and every tuning mode of the front end
 (``bpsk_block_batch`` in the general, static, FFT auto-tune and mixed
-modes, and the auto-tuned deployment's staged spectrum step; phase 12).
-It checks that each path went through
-its kernels, then times more steps of each on the host clock and
-profiles a few with torch.profiler for the device-busy share. Every
+modes, and the auto-tuned deployment's staged spectrum step; phase 12);
+and the audio demodulator (``demod/am_fm.py``, which has no kernel of its
+own) at the JAX package's bench deployment, with its known answers, the
+streaming demod Session and the ``demod`` and ``fir`` commands (phase
+13). It checks that each path went through its kernels (and that phase
+13 launched none of them), then times more steps of each on the host
+clock and profiles a few with torch.profiler for the device-busy share. Every
 phase asserts; any failure ends the run with a non-zero exit code and no
 result line. Each measured number is printed beside the card's name and power
 limit. The output ends with a JSON line of the kernels (launches on the
@@ -87,6 +90,11 @@ SEED = 2026
 # it ~300 Hz off, tests/test_bpsk_chain.py:241-245): pair 9 takes seed 16
 # because seed 9 is such a draw at 13650 Hz, in the JAX package too.
 # tests/test_torch_tuner.py shows the JAX package decodes every pair.
+# phase 13: the JAX package's audio demod bench deployment (bench.py:
+# 409-412): 64 WFM streams x 10 s at 96 kS/s, 21-tap band-pass at
+# +-20 kHz, down-shift, discriminator, AGC; 3 chained blocks
+DEMOD_SHAPE = (64, 960_000)
+DEMOD_BLOCKS = 3
 DOFFT_STREAMS = tuple((3300.0 + 1150.0 * k, 16 if k == 9 else k)
                       for k in range(16))
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): fp32 outside the tensor
@@ -244,6 +252,9 @@ def main() -> int:
 
     # ---- phase 12: every tuning mode at a deployment's size ---------------
     phase_tuning_modes(torch, np, dev, rng, tag)
+
+    # ---- phase 13: AM/NFM/WFM audio demod at a deployment's size ----------
+    phase_audio_demod(torch, np, dev, tag)
 
     need("jax" not in sys.modules and "jsdr_tpu" not in sys.modules,
          "jax or the JAX package was imported")
@@ -1825,6 +1836,297 @@ def waits_for_card(torch, fn, args) -> bool:
     waited = mark.query()
     torch.cuda.synchronize()
     return waited
+
+def kernel_wrappers():
+    """The six kernel wrappers of the port (each counts its launches)."""
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
+    from jsdr_tpu_torch.ops.psd_waterfall import psd_waterfall
+    from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
+    from jsdr_tpu_torch.ops.spectrum_fused import spectrum_fused
+    from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
+
+    return (mix_decimate, timing_recover_batch, spectrum_front_fused,
+            spectrum_fused, psd_waterfall, mix_decimate_mf)
+
+
+def check_demod_state(torch, got, want, what: str) -> None:
+    """An AmFmState against another: the FIR tail bit for bit, the carried
+    phase within 1e-5 rad (as an angle), last_iq within 1e-5."""
+    need(torch.equal(got.fir_tail.re, want.fir_tail.re)
+         and torch.equal(got.fir_tail.im, want.fir_tail.im),
+         f"{what}: FIR tails differ")
+    d = (got.car - want.car).abs()
+    need(float(torch.minimum(d, 2 * np.pi - d).max()) <= 1e-5,
+         f"{what}: carried phases differ by more than 1e-5 rad")
+    need(float((got.last_iq - want.last_iq).abs().max()) <= 1e-5,
+         f"{what}: last_iq differs by more than 1e-5")
+
+
+def phase_audio_demod(torch, np, dev, tag):
+    """Phase 13: the AM/NFM/WFM audio demodulator (``demod/am_fm.py``),
+    which runs as torch ops and launches none of the six kernels:
+
+    (a) the JAX package's bench deployment (bench.py:409-412): 64 WFM
+    streams x 960,000 samples (10 s at 96 kS/s), 21-tap band-pass at
+    +-20 kHz, down-shift, discriminator and AGC, on seeded noise made on
+    the card; 3 chained blocks, the first 2 streams recomputed on the CPU
+    by the same functions (audio within 2e-5 after AGC, max within 1e-5
+    relative, state as ``check_demod_state``); 10 timed and 3 profiled
+    steps on the next input each, event time back to back ending with a
+    value read, MS/s, beside the byte bound (input read + audio written);
+    whether a step makes the host wait for the card (it must not);
+    (b) the known answers of tests/test_demod.py on the card: AM's 1 kHz
+    envelope and mean 0.4, NFM's 800 Hz tone, FIR select + down-shift of
+    10 kHz to 2 kHz, and ten chained 0.1 s blocks equal to one 1 s block;
+    (c) the streaming loop on one stream: 0.1 s blocks through Session +
+    DemodStage + AudioSinkStage into a file sink, with and without
+    device conversion, ms per block, the sink's audio within 1 count of
+    the ``demod`` file path's on the same input;
+    (d) ``jsdr-tpu-torch demod`` and ``fir`` on a synthesised fixture on
+    the card, each output within 1 count of the ``--device cpu`` run;
+    (e) the six kernel wrappers' launch counts do not move in (a)-(d)."""
+    from jsdr_tpu_torch.demod.am_fm import AmFmConfig, AmFmState, Mode, \
+        demod_block
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+
+    # ---- (a) the bench deployment
+    s, t_len = DEMOD_SHAPE
+    cfg = AmFmConfig(rate=96000, mode=int(Mode.WFM), dofir=True, dodwn=True,
+                     doagc=True, flo=-20_000, fhi=20_000)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    blocks = []
+    for _ in range(DEMOD_BLOCKS):
+        z = torch.randn((2, s, t_len), generator=gen, device=dev) * 0.3
+        blocks.append((z[0], z[1]))
+    from jsdr_tpu_torch.ops.cplx import CF
+    st = AmFmState.init(cfg, dev, s)
+    cpu = "cpu"
+    st_c = AmFmState.init(cfg, cpu, 2)
+    for b, (re, im) in enumerate(blocks):
+        audio, mx, _avg, st = demod_block(CF(re, im), cfg, st)
+        a_c, mx_c, _a, st_c = demod_block(CF(re[:2].to(cpu), im[:2].to(cpu)),
+                                          cfg, st_c)
+        err = float((audio[:2].to(cpu) - a_c).abs().max())
+        need(err <= 2e-5, f"demod block {b}: card audio differs from the "
+             f"CPU's by {err:.3g} (> 2e-5)")
+        rel = float(((mx[:2].to(cpu) - mx_c).abs() / mx_c.abs()).max())
+        need(rel <= 1e-5, f"demod block {b}: block max differs by {rel:.3g} "
+             "relative (> 1e-5)")
+        need(bool(torch.isfinite(audio).all()) and audio.shape == (s, t_len),
+             f"demod block {b}: audio not finite or of the wrong shape")
+    part = AmFmState(CF(st.fir_tail.re[:2].to(cpu),
+                        st.fir_tail.im[:2].to(cpu)),
+                     st.car[:2].to(cpu), st.last_iq[:2].to(cpu))
+    check_demod_state(torch, part, st_c, "demod deployment")
+    print(f"{tag} audio demod WFM S={s} T={t_len}: {DEMOD_BLOCKS} chained "
+          f"blocks on the card; the first 2 streams on the CPU agree (audio "
+          f"<= 2e-5 after AGC, max <= 1e-5 relative, state)")
+
+    nbytes = s * t_len * (8 + 4)
+    flops = s * t_len * (2 * 2 * 21 + 12 + 8)
+    bound_ms, bound_by = bound(flops, nbytes)
+    state = [st, 0]
+
+    def step():
+        re, im = blocks[state[1] % DEMOD_BLOCKS]
+        out = demod_block(CF(re, im), cfg, state[0])
+        state[0] = out[3]
+        state[1] += 1
+        return out[1]
+
+    wall = step_times(torch, step, 10, 3, tag,
+                      f"audio demod step WFM S={s} T={t_len}")
+    ev_ms = time_ms(torch, lambda i: step(), [(i,) for i in range(3)], 10)
+    print(f"{tag} audio demod WFM S={s} T={t_len}: {wall:.3f} ms/step wall "
+          f"mean ({s * t_len / wall / 1e3:.0f} MS/s), {ev_ms:.3f} ms/step "
+          f"event-timed back to back ({s * t_len / ev_ms / 1e3:.0f} MS/s); "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.3f} GB: "
+          f"input read + audio written)")
+    need(not waits_for_card(torch, step, ()),
+         "a demod_block step makes the host wait for the card")
+    del blocks, audio
+    torch.cuda.empty_cache()
+
+    demod_known_answers(torch, dev, tag)
+    demod_stream(dev, tag)
+    demod_cli(dev, tag)
+
+    moved = {fn.__name__: fn.launches for fn in wrappers if fn.launches}
+    need(not moved, f"the audio demod path launched kernels: {moved}")
+    print(f"{tag} audio demod: none of the six kernels launched in phase 13")
+
+
+def demod_known_answers(torch, dev, tag):
+    """Phase 13 (b): tests/test_demod.py's signals through the port on the
+    card."""
+    from jsdr_tpu_torch.demod.am_fm import AmFmConfig, AmFmState, Mode, \
+        demod_block
+    from jsdr_tpu_torch.io.sources import synth_sine
+    from jsdr_tpu_torch.ops.cplx import from_complex
+
+    rate = 96000
+    t = np.arange(rate) / rate
+
+    def run(iq, cfg):
+        return demod_block(from_complex(np.asarray(iq, np.complex64), dev),
+                           cfg, AmFmState.init(cfg, dev))
+
+    def peak(audio, lo=100):
+        spec = np.abs(np.fft.rfft(audio.cpu().numpy()))
+        return int(np.argmax(spec[lo:]) + lo)
+
+    am = 0.4 * (1 + 0.5 * np.sin(2 * np.pi * 1000 * t)) * np.exp(
+        2j * np.pi * 5000 * t)
+    audio, _mx, avg, _ = run(am, AmFmConfig(rate=rate, mode=int(Mode.AM)))
+    need(peak(audio) == 1000 and abs(float(avg) - 0.4) < 0.01,
+         f"AM: peak {peak(audio)} Hz, mean {float(avg):.4f}")
+    fm = 0.5 * np.exp(1j * 2 * np.pi * np.cumsum(
+        4000.0 * np.sin(2 * np.pi * 800 * t)) / rate)
+    audio, *_ = run(fm, AmFmConfig(rate=rate, mode=int(Mode.NFM)))
+    need(peak(audio) == 800, f"NFM: peak {peak(audio)} Hz")
+    two = (synth_sine(rate, 10000.0, rate, amplitude=0.4)
+           + synth_sine(rate, 30000.0, rate, amplitude=0.4))
+    audio, *_ = run(two, AmFmConfig(rate=rate, mode=int(Mode.RAW),
+                                    dofir=True, dodwn=True, flo=8000,
+                                    fhi=12000))
+    spec = np.abs(np.fft.fft(audio.cpu().numpy()))
+    shifted = int(np.argmax(spec[:rate // 2]))
+    need(abs(shifted - 2000) < 20, f"FIR select + down-shift: {shifted} Hz")
+    cfg = AmFmConfig(rate=rate, mode=int(Mode.NFM), dofir=True, dodwn=True,
+                     flo=-7333, fhi=9000)
+    tone = synth_sine(rate, 2000.0, rate, amplitude=0.5)
+    whole, _, _, wst = run(tone, cfg)
+    st, parts = AmFmState.init(cfg, dev), []
+    for part in np.split(tone, 10):
+        a, _, _, st = demod_block(from_complex(part, dev), cfg, st)
+        parts.append(a)
+    err = float((torch.cat(parts) - whole).abs().max())
+    need(err <= 2e-5 * float(whole.abs().max()),
+         f"ten 0.1 s blocks differ from one 1 s block by {err:.3g}")
+    check_demod_state(torch, st, wst, "ten chained blocks")
+    print(f"{tag} audio demod known answers on the card: AM 1 kHz, mean "
+          f"{float(avg):.4f}; NFM 800 Hz; 10 kHz shifted to {shifted} Hz; "
+          f"ten 0.1 s blocks = one 1 s block (max diff {err:.3g})")
+
+
+def demod_fixture(path, seconds: int):
+    """A WFM-like fixture written by the port's ``synth``: seeded noise at
+    amplitude 0.3, raw S16LE."""
+    import contextlib
+    import io
+
+    from jsdr_tpu_torch.app.main import main as cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli(["--seconds", str(seconds), "synth", "noise", "--amplitude",
+             "0.3", "--seed", str(SEED), "--out", str(path)])
+    return path
+
+
+def close_s16(a, b, what: str, equal: float = 0.0) -> float:
+    """S16 files within 1 count (and at least ``equal`` of the samples
+    equal); returns the share equal."""
+    a = np.fromfile(a, "<i2").astype(int)
+    b = np.fromfile(b, "<i2").astype(int)
+    need(a.shape == b.shape and len(a) > 0,
+         f"{what}: {a.shape} against {b.shape} samples")
+    d = np.abs(a - b)
+    share = float((d == 0).mean())
+    need(d.max() <= 1 and share >= equal,
+         f"{what}: differ by up to {d.max()} counts, {share:.4%} equal")
+    return share
+
+
+def demod_stream(dev, tag):
+    """Phase 13 (c): one stream in 0.1 s blocks through Session +
+    DemodStage + AudioSinkStage into a file sink, host and device
+    conversion; ms per block; the sink's audio against the file path's."""
+    import contextlib
+    import io
+
+    from jsdr_tpu_torch.app.main import main as cli
+    from jsdr_tpu_torch.demod.am_fm import AmFmConfig, Mode
+    from jsdr_tpu_torch.io.live import AudioSink
+    from jsdr_tpu_torch.io.sources import FileSource
+    from jsdr_tpu_torch.runtime.executor import (AudioSinkStage, DemodStage,
+                                                 Session)
+
+    rate, seconds = 96000, 10
+    out = ROOT / "build" / "chip_smoke_demod"
+    out.mkdir(parents=True, exist_ok=True)
+    src = demod_fixture(out / "wfm.raw", seconds)
+    flags = ["--mode", "wfm", "--flo", "-20000", "--fhi", "20000",
+             "--downshift"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli(["--seconds", str(seconds), "demod", f"file:{src}", *flags,
+             "--out", str(out / "file.raw"), "--device", str(dev)])
+    cfg = AmFmConfig(rate=rate, mode=int(Mode.WFM), dofir=True, dodwn=True,
+                     flo=-20000, fhi=20000)
+    for raw in (False, True):
+        fsrc = FileSource(str(src), rate=rate, channels=2)
+        chunks = (fsrc.raw_blocks(rate // 10) if raw
+                  else fsrc.blocks(rate // 10))
+        sink_path = out / f"sink_{int(raw)}.raw"
+        session = Session(source=chunks, block_samples=rate // 10,
+                          device=dev)
+        sink = AudioSink(str(sink_path), max_blocks=1024)
+        stages = [DemodStage(cfg, device=dev), AudioSinkStage(sink)]
+        t0 = time.perf_counter()
+        try:
+            n = session.run(stages)
+        finally:
+            sink.close()
+        wall = (time.perf_counter() - t0) * 1e3
+        rep = session.timers.report()
+        need(n == 10 * seconds and session.dropped_blocks == {}
+             and sink.blocks_written == n and sink.overruns == 0,
+             f"demod stream: {n} blocks, dropped {session.dropped_blocks}, "
+             f"sink {sink.blocks_written} written, {sink.overruns} overruns")
+        share = close_s16(sink_path, out / "file.raw",
+                          "demod stream sink against the file path")
+        d = rep["demod"]
+        print(f"{tag} demod stream ({'device' if raw else 'host'} "
+              f"conversion): {n} blocks of 0.1 s, {wall / n:.3f} ms per "
+              f"block end to end (real time needs < 100 ms); demod stage "
+              f"{d['wall_s'] / d['calls'] * 1e3:.3f} ms per block; sink "
+              f"audio within 1 count of the file path's ({share:.2%} equal: "
+              f"the sink rounds, the file path truncates)")
+
+
+def demod_cli(dev, tag):
+    """Phase 13 (d): ``demod`` and ``fir`` on the card against
+    ``--device cpu`` on a synthesised fixture."""
+    import contextlib
+    import io
+
+    from jsdr_tpu_torch.app.main import main as cli
+
+    out = ROOT / "build" / "chip_smoke_demod"
+    src = demod_fixture(out / "cli.raw", 2)
+    runs = (("demod", ["demod", f"file:{src}", "--mode", "wfm", "--flo",
+                       "-20000", "--fhi", "20000", "--downshift", "--agc"]),
+            ("demod am", ["demod", f"file:{src}", "--mode", "am"]),
+            ("fir", ["fir", f"file:{src}", "--mix", "1000", "--widen",
+                     "4"]))
+    for what, args in runs:
+        got = {}
+        for d in (str(dev), "cpu"):
+            path = out / f"cli_{what.replace(' ', '_')}_{d}.raw"
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rc = cli(["--seconds", "2", *args, "--out", str(path),
+                          "--device", d])
+            need(rc == 0, f"{what} --device {d} exited {rc}")
+            got[d] = (path, text.getvalue().replace(str(path), "OUT"))
+        share = close_s16(got[str(dev)][0], got["cpu"][0],
+                          f"jsdr-tpu-torch {what} card against cpu")
+        print(f"{tag} jsdr-tpu-torch {' '.join(args[:1] + args[2:])}: card "
+              f"output within 1 count of --device cpu ({share:.2%} equal)")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -13,19 +13,25 @@ The package never imports jax, nor anything of ``jsdr_tpu``: the
 JAX-free host modules it needs (``fec.tables``, ``fec.ref_numpy``,
 ``io.convert``, ``io.sources``, ``io.flac``, ``io.framer``,
 ``io.recorder``, ``io.live``, ``io.fcd``, ``runtime.pubsub``,
-``runtime.log``, ``display.waterfall``, ``display.render`` and the CLI's
-host helpers) are copies, held equal to the reference's by
+``runtime.log``, ``runtime.config``, ``display.waterfall``,
+``display.phase_scope``, ``display.render`` and the CLI's host helpers)
+are copies, held equal to the reference's by
 tests/test_torch_host_copies.py.
 
-Ported so far: the telemetry decode path in "pattern" tuning mode —
-``demod.bpsk.bpsk_block_batch`` (with ``BpskConfig.fuse_mf``) and
-``fec.decoder.fec_decode`` — the flagship spectrum + telemetry step
-``demod.bpsk.bpsk_block_batch_spectrum`` with ``ops.spectrum``
-(``spectrum_block``, ``spectrum_wide``), the streaming Session
-(``runtime.executor``, ``runtime.state``, ``io.convert_device``), and the
-``jsdr-tpu-torch telemetry`` and ``spectrum`` commands. All six TPU
-kernels of the JAX package have their CUDA counterpart. ROADMAP.md lists
-what is still to port.
+Ported so far: the telemetry decode path in every tuning mode —
+``demod.bpsk.bpsk_block_batch`` (with ``BpskConfig.fuse_mf``, the FFT
+auto-tuner ``demod.fft_tuner``) and ``fec.decoder.fec_decode`` — the
+flagship spectrum + telemetry step ``demod.bpsk.bpsk_block_batch_spectrum``
+with ``ops.spectrum`` (``spectrum_block``, ``spectrum_wide``), the
+AM/NFM/WFM audio demodulator ``demod.am_fm`` (torch ops, no kernel of its
+own) with ``ops.fir``'s band-pass design, the streaming Session
+(``runtime.executor`` with its spectrum, telemetry, demod, audio-sink and
+recorder stages, ``runtime.state``, ``io.convert_device``), and the
+``jsdr-tpu-torch`` commands ``spectrum``, ``demod``, ``telemetry``,
+``synth``, ``record``, ``phase``, ``fir`` and ``fcd`` with ``--config``.
+All six TPU kernels of the JAX package have their CUDA counterpart.
+ROADMAP.md lists what is still to port (the TUI and ``ui``,
+``io.native``, ``compat_scan``, ``parallel/``).
 """
 
 __version__ = "0.1.0"

@@ -20,9 +20,11 @@ reference's timers did under JAX's asynchronous dispatch. A stage that
 publishes host arrays every block (``SpectrumStage``) synchronises there,
 as the reference's does.
 
-Not ported yet (ROADMAP.md, queue 1): ``DemodStage`` and
-``AudioSinkStage`` (they wait for ``demod/am_fm.py``) and the device
-mesh of ``TelemetryStage(mesh=...)`` (it waits for ``parallel/``).
+The stages: ``SpectrumStage``, ``TelemetryStage``,
+``SpectrumTelemetryStage``, ``DemodStage`` (AM/NFM/WFM audio, published
+as host arrays every block), ``AudioSinkStage`` and ``RecorderStage``.
+Not ported yet (ROADMAP.md, queue 1): the device mesh of
+``TelemetryStage(mesh=...)`` (it waits for ``parallel/``).
 """
 
 from __future__ import annotations
@@ -406,6 +408,55 @@ class SpectrumTelemetryStage(TelemetryStage):
 def _broadcast(block: CF, n: int) -> CF:
     """[T] block -> [n, T] rows (one per demodulator instance)."""
     return CF(block.re.expand(n, -1), block.im.expand(n, -1))
+
+
+class DemodStage(Stage):
+    """demod.java analog: AM/NFM/WFM demodulation of each block
+    (:func:`jsdr_tpu_torch.demod.am_fm.demod_block`); publishes the float
+    audio as a host array on 'audio-out'. ``state`` is an
+    :class:`~jsdr_tpu_torch.demod.am_fm.AmFmState` on ``device`` (default
+    ``"cuda"``), so checkpoints hold the reference's leaves."""
+
+    name = "demod"
+
+    def __init__(self, cfg, device: Any = "cuda"):
+        from ..demod.am_fm import AmFmState
+        self.cfg = cfg
+        self.device = require_device(device)
+        self.state = AmFmState.init(cfg, self.device)
+
+    def process(self, block, session: Session):
+        from ..demod.am_fm import demod_block
+        audio, _, _, self.state = demod_block(block, self.cfg, self.state)
+        session.pubsub.publish("audio-out", audio.cpu().numpy())
+
+
+class AudioSinkStage(Stage):
+    """Real-time audio output stage: subscribes to the demod stage's
+    'audio-out' blocks and feeds them to a live sink (demod.java:489-506
+    analog — the writer thread lives in :class:`~jsdr_tpu_torch.io.live.
+    AudioSink`).
+
+    Place it AFTER the DemodStage in the stage list; it consumes the
+    block published during this executor iteration.
+    """
+
+    name = "audio-sink"
+
+    def __init__(self, sink):
+        self.sink = sink                 # an io.live.AudioSink
+        self._last = None
+
+    def process(self, block, session: Session):
+        audio = session.pubsub.get("audio-out")
+        # identity check: if the demod stage dropped this block, don't
+        # replay the previous block's audio
+        if audio is not None and audio is not self._last:
+            self.sink.write(audio)
+            self._last = audio
+
+    def close(self):
+        self.sink.close()
 
 
 class RecorderStage(Stage):

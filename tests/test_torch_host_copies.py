@@ -1,8 +1,8 @@
 """The port keeps its own copies of the JAX package's JAX-free host modules
 (``fec.tables``, ``fec.ref_numpy``, ``io.convert``, ``io.sources``,
 ``io.flac``, ``io.framer``, ``io.recorder``, ``io.live``, ``io.fcd``,
-``runtime.pubsub``, ``runtime.log``, ``display.*``) so that it imports
-nothing of ``jsdr_tpu``.
+``runtime.pubsub``, ``runtime.log``, ``runtime.config``, ``display.*``)
+so that it imports nothing of ``jsdr_tpu``.
 
 These tests hold that rule and the copies: an AST scan of every module of
 the port and of ``chip_smoke.py`` for imports of ``jax`` or ``jsdr_tpu``,
@@ -39,7 +39,8 @@ SCANNED = sorted((ROOT / "jsdr_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 # copied without a change to their code
 VERBATIM = ("io/framer.py", "io/recorder.py", "io/live.py", "io/fcd.py",
-            "runtime/pubsub.py", "runtime/log.py")
+            "runtime/pubsub.py", "runtime/log.py", "runtime/config.py",
+            "display/phase_scope.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -187,7 +188,8 @@ def test_verbatim_copy_equals_the_reference(rel):
     assert _code(ROOT / "jsdr_tpu_torch" / rel) == _code(ROOT / "jsdr_tpu"
                                                           / rel)
     for new in ("runtime/executor.py", "runtime/state.py",
-                "io/convert_device.py", "ops/nco.py", "demod/fft_tuner.py"):
+                "io/convert_device.py", "ops/nco.py", "demod/fft_tuner.py",
+                "demod/am_fm.py", "app/main.py"):
         assert ROOT / "jsdr_tpu_torch" / new in SCANNED
 
 
@@ -224,5 +226,42 @@ def test_framer_recorder_and_live_sources_equal_the_reference(tmp_path):
             [raw[:2 * 480], iq[:960], iq[:96]], rate=9600,
             clock=lambda: now[0], sleep=slept.append)
         got += [x.tobytes() for x in paced] + [repr(slept)]
+        outs.append(got)
+    assert outs[0] == outs[1]
+
+
+def test_config_and_phase_scope_equal_the_reference(tmp_path):
+    """The copies' outputs equal the reference's: a properties file read
+    with typed accessors, overrides, default write-back, a stale schema
+    discarded and the file saved back (byte-equal); the phase scope's
+    points, traces and scale of a noisy block (byte-equal)."""
+    import jsdr_tpu.display.phase_scope as j_phase
+    import jsdr_tpu.runtime.config as j_config
+    import jsdr_tpu_torch.display.phase_scope as t_phase
+    import jsdr_tpu_torch.runtime.config as t_config
+
+    text = ("# c\njsdr-tpu-version=1\naudio-rate = 192000\n"
+            "demod-mode=x\n! bang\nfft-hamming=0\n")
+    outs = []
+    for cfg_mod, phase_mod, tag in ((j_config, j_phase, "j"),
+                                    (t_config, t_phase, "t")):
+        path = tmp_path / f"{tag}.properties"
+        path.write_text(text)
+        c = cfg_mod.Config(path, overrides=["audio-ic=5", "bad"])
+        got = [c.get_int("audio-rate", 96000), c.get_int("demod-mode", 3),
+               c.get_float("audio-ic", 0.0), c.get("missing", "dflt"),
+               c.get_int("fft-hamming", 1), c.as_dict()]
+        c.set("extra", 7)
+        c.save()
+        got.append(path.read_text())
+        stale = tmp_path / f"{tag}.stale"
+        stale.write_text("jsdr-tpu-version=0\naudio-rate=44100\n")
+        got.append(cfg_mod.Config(stale).get_int("audio-rate", 96000))
+        rng = np.random.default_rng(9)
+        iq = (rng.standard_normal(9600) + 1j * rng.standard_normal(9600)
+              ).astype(np.complex64)
+        d = phase_mod.phase_scope_data(iq, width=300)
+        got.append([d.points.tobytes(), d.i_trace.tobytes(),
+                    d.q_trace.tobytes(), d.max_abs])
         outs.append(got)
     assert outs[0] == outs[1]
