@@ -24,11 +24,15 @@ Subcommands mirror the reference's tabs:
 - ``record``: re-write a source as raw S16LE IQ or FLAC (recorder.java);
 - ``phase``: constellation + I/Q trace scope (phase.java);
 - ``fir``: FIR design/testbench (the standalone fir.java console tool);
-- ``fcd``: FUNcube Dongle control/self-test (FCD.java main()).
+- ``fcd``: FUNcube Dongle control/self-test (FCD.java main());
+- ``ui``: the interactive curses shell (tabs over a live waterfall, the
+  reference's hotkey map, live re-tuning and stage swaps;
+  :mod:`jsdr_tpu_torch.app.tui`), ``--no-pace`` replays files at full
+  speed.
 
-``--device`` picks where ``spectrum``, ``demod``, ``telemetry`` and
-``fir`` run: ``cuda`` (the default) launches the port's CUDA kernels and
-torch ops on the card, ``cpu`` runs their plain PyTorch versions; the
+``--device`` picks where ``spectrum``, ``demod``, ``telemetry``, ``fir``
+and ``ui`` run: ``cuda`` (the default) launches the port's CUDA kernels
+and torch ops on the card, ``cpu`` runs their plain PyTorch versions; the
 other subcommands touch no tensor.
 
 Config: ``--config jsdr.properties`` loads a java-properties-style file
@@ -36,8 +40,8 @@ using the REFERENCE's key schema (audio-rate, audio-ic/qc, fft-hamming,
 demod-*, FUNcube<n>-bpsk-*, jsdr-funcube-demods — jsdr.java:49-57,
 JavaAudio.java:18-23, demod.java:32-37, FUNcubeBPSKDemod.java:97-99);
 explicit CLI flags override it, like the reference's key=val overrides
-(jsdr.java:256-265). ``--mesh`` and the ``ui`` subcommand are not ported
-yet (ROADMAP.md).
+(jsdr.java:256-265). ``--mesh`` (``telemetry``, ``ui``) raises
+NotImplementedError until ``parallel/`` is ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -525,6 +529,13 @@ def cmd_fcd(args) -> int:
     return 0
 
 
+def cmd_ui(args) -> int:
+    """Interactive terminal shell (jsdr.java Swing UI analog): tabs over
+    a live waterfall, driven by the reference's accelerator map."""
+    from .tui import run_tui
+    return run_tui(args)
+
+
 def cmd_record(args) -> int:
     from ..io.recorder import RawRecorder
     iq, rate = _load_iq(args, args.rate)
@@ -675,6 +686,20 @@ def main(argv=None):
     rc.add_argument("source")
     rc.add_argument("--out", default="capture.raw")
     rc.set_defaults(fn=cmd_record)
+
+    ui = sub.add_parser("ui", help="interactive terminal UI: tabs + "
+                        "waterfall + the reference's hotkey map "
+                        "(jsdr.java shell + accelerator-map.txt analog)")
+    ui.add_argument("source", nargs="?", default=None,
+                    help="file:<path>, pipe:<path>, capture:<cmd>, or fcd; "
+                    "omit to open one later with Ctrl-O/Ctrl-D")
+    ui.add_argument("--no-pace", action="store_true",
+                    help="replay files at full speed instead of real-time")
+    ui.add_argument("--mesh", metavar="DPxSP",
+                    help="multi-device telemetry tabs (not ported yet: "
+                    "raises)")
+    ui.add_argument("--device", default="cuda", help=device_help)
+    ui.set_defaults(fn=cmd_ui)
 
     args = p.parse_args(argv)
     _apply_config(args)

@@ -26,7 +26,10 @@ Per block of [S, T] stream rows (T a multiple of 8*decim):
    pattern, mixed:pattern) steps 1 and 2 are ONE kernel,
    :func:`jsdr_tpu_torch.ops.mix_decimate_mf.mix_decimate_mf`;
 3. bit-timing recovery — the timing kernel,
-   :func:`jsdr_tpu_torch.ops.timing_kernel.timing_recover_batch`;
+   :func:`jsdr_tpu_torch.ops.timing_kernel.timing_recover_batch`, or with
+   ``BpskConfig.compat_scan`` the per-sample scan
+   :func:`_timing_scan_batch` in the Java original's order (a torch loop,
+   no kernel: for fp-order parity checks, slow on a card);
 4. bit compaction, stride-80 sync correlation at every bit position and
    soft-window extraction (plain torch).
 
@@ -38,13 +41,13 @@ mode but pattern, and ``fuse_mf``), the staged pair runs
 
 Values, layouts and carried state match the reference; where the JAX code
 avoids TPU gathers (one-hot row matmuls, masked reductions) this port
-indexes directly. ``compat_scan`` is not ported yet and raises
-``NotImplementedError`` (ROADMAP.md, queue 1).
+indexes directly.
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -127,7 +130,9 @@ class BpskConfig(NamedTuple):
     max_hits_per_block: int = 4
     dofft: bool = False        # FFT auto-tune front end (doBufferFFT)
     track_high: bool = False   # auto-tune searches the upper half-band
-    compat_scan: bool = False  # per-sample timing scan (not ported)
+    compat_scan: bool = False  # per-sample timing scan in the Java
+                               # original's fp order (_timing_scan_batch);
+                               # forces fuse_mf off
     fuse_mf: bool = False      # VCO + matched filter in the front-end
                                # kernel (mix_decimate_mf) where the
                                # reference fuses (dofft, pattern,
@@ -374,13 +379,132 @@ def _vco_pattern(vco_idx: torch.Tensor):
             torch.as_tensor(_VCO_SIN, device=dev)[m8])
 
 
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """fma(a, b, c) in float32: float64 holds the product of two float32
+    values exactly, so the sum is rounded once to float64 and then to
+    float32. That can differ from one rounding only where the float64 sum
+    lands exactly half way between two float32 values."""
+    return (a.double() * b + c).float()
+
+
+def _timing_scan_batch(mf: CF, ts: TimingState):
+    """Bit-energy timing + differential decision per decimated sample
+    (FUNcubeBPSKDemod.java:505-595): the port of the reference's
+    ``compat_scan`` path (``jsdr_tpu.demod.bpsk._timing_scan``, a
+    ``lax.scan``), a loop over the K samples of [S, K] matched-filter
+    rows, vectorised over the streams, on their device.
+
+    Every step evaluates the reference's operations in the order its CPU
+    build evaluates them: XLA contracts a product and a sum into one fused
+    multiply-add (:func:`_fma`), and the constants are float32 roundings of
+    Python scalars (1 - BIT_SMOOTH1 is computed in float64 first, as JAX
+    does for a weak-typed scalar). Which product XLA contracts depends on
+    the batch: it compiles one stream and a batch of several differently.
+    The forms, found by comparing with JAX 0.9's CPU output
+    (tests/test_torch_compat_scan.py holds them at S = 1 and S = 3):
+
+    - ``e1 = fma(fi, fi, fq*fq)``;
+    - ``e_ema[pos]``: one stream ``fma(e_ema[pos], 1-s1, e1*s1)``, a
+      batch ``fma(e1, s1, e_ema[pos]*(1-s1))``; ``e_out`` at the peak
+      phase likewise with s2;
+    - ``di = -fma(l0, fi, l1*fq)``, ``bit = di < 0``;
+    - ``e2 = sqrt(fma(d, d, dq*dq))`` with ``dq = fma(l0, fq, -(l1*fi))``
+      and ``d = di`` for one stream, ``d = -fma(l1, fq, l0*fi)`` for a
+      batch (XLA evaluates di a second time inside e2).
+
+    ``pos`` advances in lockstep across a batch (every stream starts a
+    block at the same pos), so it is read once and the ``pos == 7``
+    argmax and the phase of each step are taken on the host's step
+    counter; the returned state carries pos advanced by K. The peak
+    hand-off stays per stream. Returns (valid, bit, di, e2, new state):
+    [S, K] bool, bool, float32, float32 and a :class:`TimingState`.
+    ``_timing_scan_batch.runs`` counts the calls.
+    """
+    _timing_scan_batch.runs += 1
+    s, k_len = mf.shape
+    dev = mf.re.device
+    pos_h = ts.pos.cpu()
+    if s and not bool((pos_h == pos_h[0]).all()):
+        raise ValueError(f"compat_scan needs one pos for the whole batch; "
+                         f"got {pos_h.tolist()}")
+    pos0 = int(pos_h[0]) if s else 0
+    s1, a1 = (float(np.float32(v)) for v in (BIT_SMOOTH1, 1.0 - BIT_SMOOTH1))
+    s2, a2 = (float(np.float32(v)) for v in (BIT_SMOOTH2, 1.0 - BIT_SMOOTH2))
+    fi, fq = mf.re, mf.im
+    e1 = _fma(fi, fi, fq * fq)
+    if s == 1:      # fma(carried, 1-s, e1*s)
+        w1, w2 = e1 * s1, e1 * s2
+
+        def ema(prev, w, a):
+            return prev.double() * a + w
+    else:           # fma(e1, s, carried*(1-s)); w: exact products
+        w1, w2 = e1.double() * s1, e1.double() * s2
+
+        def ema(prev, w, a):
+            return w + prev * a
+    fifq = torch.stack([fi, fq], dim=2)
+    e_ema, e_out, last = ts.e_ema.clone(), ts.e_out.clone(), ts.last_iq
+    peak, new_peak = ts.peak, ts.new_peak
+    at_hist = torch.empty((s, k_len), dtype=torch.bool, device=dev)
+    last_hist = torch.empty((s, k_len, 2), dtype=torch.float32, device=dev)
+    for k in range(k_len):
+        p = (pos0 + k) % SAMPLES_PER_BIT
+        e_ema[:, p] = ema(e_ema[:, p], w1[:, k], a1)
+        at = peak == p
+        at_hist[:, k] = at
+        last_hist[:, k] = last
+        last = torch.where(at[:, None], fifq[:, k], last)
+        e_out = torch.where(at, ema(e_out, w2[:, k], a2).float(), e_out)
+        # half-bit hand-off of the peak-energy phase (:577-578)
+        peak = torch.where((peak + 4) % SAMPLES_PER_BIT == p, new_peak, peak)
+        if p == SAMPLES_PER_BIT - 1:
+            # end of bit group: rescan peak energy (:581-592)
+            new_peak = torch.argmax(e_ema, dim=1).to(torch.int32)
+    l0, l1 = last_hist[..., 0], last_hist[..., 1]
+    di = -_fma(l0, fi, l1 * fq)
+    dq = _fma(l0, fq, -(l1 * fi))
+    # float32 sqrt, correctly rounded (float64 holds it exactly enough;
+    # torch's float32 sqrt on the CPU is not always correctly rounded)
+    d = di if s == 1 else -_fma(l1, fq, l0 * fi)
+    e2 = torch.sqrt(_fma(d, d, dq * dq).double()).float()
+    valid = at_hist & (e2 > ENERGY_GATE)
+    pos = ((ts.pos.long() + k_len) % SAMPLES_PER_BIT).to(torch.int32)
+    return valid, di < 0.0, di, e2, TimingState(e_ema, pos, peak, new_peak,
+                                                e_out, last)
+
+
+_timing_scan_batch.runs = 0
+
+
+def compat_scan_warning(device) -> str | None:
+    """The RuntimeWarning text for ``compat_scan`` on ``device``, or None
+    where the scan costs what it should (the CPU), as the reference warns
+    on any accelerator (jsdr_tpu/demod/bpsk.py:1136-1149)."""
+    if torch.device(device).type == "cpu":
+        return None
+    return (
+        "compat_scan=True runs the per-sample timing scan, a loop of ~17 "
+        "torch launches per decimated sample: measured 1.97-2.82 s per 1 s "
+        "block on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase "
+        "15, PERF.md), slower than real time, where the default timing "
+        "kernel takes 0.016 ms. Use compat_scan only for fp-order parity "
+        "checks, ideally on the CPU.")
+
+
+def _warn_compat_scan(cfg: "BpskConfig", device) -> None:
+    msg = compat_scan_warning(device) if cfg.compat_scan else None
+    if msg:
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
 def _compact_bits(valid: torch.Tensor, bit: torch.Tensor, max_bits: int):
     """Valid decisions as +/-1 int8, in order, into [S, max_bits] (0 pad);
-    n_bits = min(#valid, max_bits)."""
+    n_bits = min(#valid, max_bits). ``valid``/``bit``: [S, N], two slots a
+    bit period from the timing kernel, or one a sample from the scan."""
     s, n = valid.shape
-    assert n < max_bits
     pos = torch.cumsum(valid.to(torch.int64), dim=1) - 1
-    dest = torch.where(valid, pos, max_bits)   # invalids: a spare column
+    # invalids, and valids past max_bits, land in a spare column
+    dest = torch.where(valid & (pos < max_bits), pos, max_bits)
     pm = torch.where(bit, 1, -1).to(torch.int8)
     out = torch.zeros((s, max_bits + 1), dtype=torch.int8, device=valid.device)
     out.scatter_(1, dest, pm)
@@ -440,12 +564,6 @@ def soft_frames_from_bits(bits: torch.Tensor, n_bits: torch.Tensor,
 # The block step
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to jsdr_tpu_torch yet (ROADMAP.md, queue 1); "
-        "use jsdr_tpu for it")
-
-
 def _block_tunings(iq: CF, cfg: BpskConfig, tunings) -> np.ndarray:
     """Check a block and its configuration against what the port runs;
     returns the per-stream tunings in Hz [S] (default cfg.tuning)."""
@@ -456,8 +574,6 @@ def _block_tunings(iq: CF, cfg: BpskConfig, tunings) -> np.ndarray:
             f"block length {t_len} must be a multiple of 8*decim = {8 * m} "
             "(timing recovery groups the decimated stream into whole "
             "8-sample bit periods)")
-    if cfg.compat_scan:
-        raise _not_ported("compat_scan (the per-sample timing scan)")
     if tunings is None:
         tunings = np.full(s, cfg.tuning, np.float64)
     tun = np.asarray(tunings, np.float64).reshape(-1)
@@ -591,7 +707,8 @@ def _front_dispatch(iq: CF, states: BpskState, tun: np.ndarray,
 
 def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
                 ds_tail: CF, ft_state: FftTunerState, t_len: int,
-                max_hits: int) -> Tuple[BpskBlockOut, BpskState]:
+                max_hits: int, compat_scan: bool = False
+                ) -> Tuple[BpskBlockOut, BpskState]:
     """The decimated-domain stages after the front end (the counterpart of
     ``jsdr_tpu.demod.bpsk._bpsk_post_batch``): VCO mix + matched filter,
     then :func:`_post_mf_batch`."""
@@ -599,7 +716,7 @@ def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
     mf, mf_tail = fir_apply_streaming(bb, _mf_taps(ds.re.device),
                                       states.mf_tail)
     return _post_mf_batch(mf, states, tu_phase, ds_tail, mf_tail, vco_idx,
-                          ft_state, t_len, max_hits)
+                          ft_state, t_len, max_hits, compat_scan)
 
 
 def _mf_taps(dev) -> torch.Tensor:
@@ -608,21 +725,31 @@ def _mf_taps(dev) -> torch.Tensor:
 
 def _post_mf_batch(mf: CF, states: BpskState, tu_phase: torch.Tensor,
                    ds_tail: CF, mf_tail: CF, vco_idx: torch.Tensor,
-                   ft_state: FftTunerState, t_len: int, max_hits: int
+                   ft_state: FftTunerState, t_len: int, max_hits: int,
+                   compat_scan: bool = False
                    ) -> Tuple[BpskBlockOut, BpskState]:
     """The chain from the matched-filter output onward (the counterpart of
-    ``jsdr_tpu.demod.bpsk._bpsk_post_mf_batch``): timing recovery,
+    ``jsdr_tpu.demod.bpsk._bpsk_post_mf_batch``): timing recovery (the
+    timing kernel, or :func:`_timing_scan_batch` under ``compat_scan``),
     compaction, sync search, window extraction, and the carried state."""
-    # timing recovery kernel
     tm = states.timing
-    valid, bit, e_ema, peak, new_peak, e_out, last_iq = timing_recover_batch(
-        mf.re, mf.im, tm.e_ema, tm.peak, tm.new_peak, tm.e_out, tm.last_iq,
-        smooth1=BIT_SMOOTH1, smooth2=BIT_SMOOTH2, gate=ENERGY_GATE)
-    timing = TimingState(e_ema, tm.pos, peak, new_peak, e_out, last_iq)
-
-    # compaction, sync search, window extraction
     ds_len = mf.shape[-1]
     max_bits = 2 * (ds_len // SAMPLES_PER_BIT) + 2
+    if compat_scan:
+        # one row a sample, more rows than max_bits; its decisions, at
+        # most two a bit period (the peak phase moves once a bit), fit
+        valid, bit, _di, _e2, timing = _timing_scan_batch(mf, tm)
+    else:
+        valid, bit, e_ema, peak, new_peak, e_out, last_iq = (
+            timing_recover_batch(
+                mf.re, mf.im, tm.e_ema, tm.peak, tm.new_peak, tm.e_out,
+                tm.last_iq, smooth1=BIT_SMOOTH1, smooth2=BIT_SMOOTH2,
+                gate=ENERGY_GATE))
+        # two slots a bit period: every decision fits, none is cut off
+        assert valid.shape[1] < max_bits
+        timing = TimingState(e_ema, tm.pos, peak, new_peak, e_out, last_iq)
+
+    # compaction, sync search, window extraction
     bits, n_bits = _compact_bits(valid, bit, max_bits)
     windows, hit_corr, n_hits, ring = soft_frames_from_bits(
         bits, n_bits, states.ring, max_hits)
@@ -632,8 +759,8 @@ def _post_mf_batch(mf: CF, states: BpskState, tu_phase: torch.Tensor,
     out = BpskBlockOut(
         windows=windows, hit_corr=hit_corr, n_hits=n_hits, bits=bits,
         n_bits=n_bits,
-        energies=torch.stack([e_out, hit_corr.max(dim=1).values.float()],
-                             dim=1))
+        energies=torch.stack([timing.e_out,
+                              hit_corr.max(dim=1).values.float()], dim=1))
     new_state = BpskState(tu_phase, ds_tail, vco_idx, mf_tail, timing, ring,
                           counters, ft_state)
     return out, new_state
@@ -655,18 +782,23 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     With ``cfg.fuse_mf`` the dofft, pattern and mixed:pattern front ends
     run the VCO mix and matched filter in their kernel
     (``mix_decimate_mf``); the general and static modes keep the unfused
-    chain, as in the reference (:966-967). Returns the block's output and
-    the carried state."""
+    chain, as in the reference (:966-967). ``cfg.compat_scan`` runs the
+    per-sample timing scan (:func:`_timing_scan_batch`) in place of the
+    timing kernel and forces ``fuse_mf`` off, as the reference does; on a
+    card it warns (:func:`compat_scan_warning`). Returns the block's
+    output and the carried state."""
     s, t_len = iq.shape
     dev = iq.re.device
     tun = _block_tunings(iq, cfg, tunings)
+    _warn_compat_scan(cfg, dev)
     flags = np.broadcast_to(np.asarray(
         cfg.dofft if dofft is None else dofft, bool), (s,)).copy()
     high = torch.as_tensor(np.broadcast_to(np.asarray(
         cfg.track_high if track_high is None else track_high, bool), (s,)
     ).copy(), device=dev)
     mode = mix_mode_for(tun, cfg.rate, flags)
-    fuse_mf = cfg.fuse_mf and mode in ("dofft", "pattern", "mixed:pattern")
+    fuse_mf = (cfg.fuse_mf and not cfg.compat_scan
+               and mode in ("dofft", "pattern", "mixed:pattern"))
     iq = CF(iq.re.contiguous(), iq.im.contiguous())
     x, ds_tail, mf_tail, tu_phase, ft_state = _front_dispatch(
         iq, states, tun, flags, high, mode, cfg.rate, fuse_mf)
@@ -677,7 +809,7 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
                               vco_idx, ft_state, t_len,
                               cfg.max_hits_per_block)
     return _post_batch(x, states, tu_phase, ds_tail, ft_state, t_len,
-                       cfg.max_hits_per_block)
+                       cfg.max_hits_per_block, cfg.compat_scan)
 
 
 class WaterfallOut(NamedTuple):
@@ -724,8 +856,9 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
     :func:`bpsk_block_batch`: one more read of the input) with the same
     results. The general, static and dofft modes (``cfg.dofft``,
     ``cfg.track_high``) and ``fuse_mf`` take the staged branch, whose
-    :func:`bpsk_block_batch` runs their front end; ``compat_scan``
-    raises NotImplementedError, as in :func:`bpsk_block_batch`."""
+    :func:`bpsk_block_batch` runs their front end. ``compat_scan`` runs
+    the per-sample timing scan on either branch, as the reference threads
+    it through (jsdr_tpu/demod/bpsk.py:1014-1031)."""
     t_len = iq.shape[-1]
     dev = iq.re.device
     tun = _block_tunings(iq, cfg, tunings)
@@ -736,6 +869,7 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
         wf, mx, idx = spectrum_waterfall(iq, n, window=window)
         out, new_states = bpsk_block_batch(iq, cfg, states, tun)
         return _waterfall_out(wf, mx, idx, cfg.rate), out, new_states
+    _warn_compat_scan(cfg, dev)
     tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
     cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, cfg.rate)
     tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
@@ -745,7 +879,7 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
         gain=HOWARD_FUDGE_FACTOR, window=window)
     out, new_states = _post_batch(ds, states, tu_phase, ds_tail,
                                   states.fft_tuner, t_len,
-                                  cfg.max_hits_per_block)
+                                  cfg.max_hits_per_block, cfg.compat_scan)
     return _waterfall_out(wf, mx, idx, cfg.rate), out, new_states
 
 

@@ -1,6 +1,6 @@
-"""FLAC codec (stdlib-only Python) — a copy of :mod:`jsdr_tpu.io.flac`
-that always takes the pure-Python decoder (the reference's native C++
-fast path, ``io/native.py``, is not ported).
+"""FLAC codec (stdlib-only Python + optional native C++ fast path) — a
+copy of :mod:`jsdr_tpu.io.flac`; the fast path is the port's own build of
+the sources (:mod:`jsdr_tpu_torch.io.native`).
 
 The reference reads FLAC transparently by registering jflac-codec as a
 javax.sound SPI (Makefile:9-10) so `file:capture.flac` sources Just Work
@@ -364,11 +364,19 @@ def _decode_frames_py(data: bytes, pos: int, rate: int, channels: int,
     return out[:total] if total else out
 
 
-def read_flac(path):
-    """Decode a FLAC file -> (samples int32 [n, channels], rate, bps)
-    with the pure-Python decoder."""
+def read_flac(path, prefer_native: bool = True):
+    """Decode a FLAC file -> (samples int32 [n, channels], rate, bps).
+
+    Uses the native C++ decoder when the IO library is built
+    (native/flac_dec.cpp), falling back to the pure-Python decoder.
+    """
     data = Path(path).read_bytes()
     rate, channels, bps, total, _md5, pos = parse_streaminfo(data)
+    if prefer_native:
+        from . import native
+        res = native.flac_decode_native(data, channels, total)
+        if res is not None:
+            return res.reshape(-1, channels), rate, bps
     out = _decode_frames_py(data, pos, rate, channels, bps, total)
     return out.astype(np.int32), rate, bps
 

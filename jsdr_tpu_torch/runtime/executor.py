@@ -22,9 +22,10 @@ as the reference's does.
 
 The stages: ``SpectrumStage``, ``TelemetryStage``,
 ``SpectrumTelemetryStage``, ``DemodStage`` (AM/NFM/WFM audio, published
-as host arrays every block), ``AudioSinkStage`` and ``RecorderStage``.
-Not ported yet (ROADMAP.md, queue 1): the device mesh of
-``TelemetryStage(mesh=...)`` (it waits for ``parallel/``).
+as host arrays every block), ``AudioSinkStage`` and ``RecorderStage``
+(the interactive shell, :mod:`jsdr_tpu_torch.app.tui`, swaps them live).
+The one part not ported yet is ``parallel/`` (ROADMAP.md, queue 1): the
+device mesh of ``TelemetryStage(mesh=...)`` raises NotImplementedError.
 """
 
 from __future__ import annotations

@@ -129,9 +129,9 @@ def test_state_carries_between_packages(rate, tunings):
 
 
 def test_what_still_raises():
-    """Every tuning mode runs now; what raises is compat_scan (not ported),
-    a block that is not whole bit periods, and an auto-tuned block that is
-    not whole 0.1 s sub-blocks."""
+    """Every tuning mode and compat_scan (tests/test_torch_compat_scan.py)
+    run now; what raises is a block that is not whole bit periods, and an
+    auto-tuned block that is not whole 0.1 s sub-blocks."""
     cfg = TB.BpskConfig(rate=96000)
     st = TB.bpsk_init_batch(cfg, 1, "cpu")
     x = CF(torch.zeros(1, 9680), torch.zeros(1, 9680))
@@ -141,8 +141,8 @@ def test_what_still_raises():
         TB.bpsk_block_batch(x, cfg._replace(dofft=True), st)
     with pytest.raises(ValueError, match="0.1 s sub-blocks"):
         TB.bpsk_block_batch(x, cfg, st, [12000.0], dofft=[True])
-    with pytest.raises(NotImplementedError, match="compat_scan.*queue 1"):
-        TB.bpsk_block_batch(x, cfg._replace(compat_scan=True), st)
+    out, _ = TB.bpsk_block_batch(x, cfg._replace(compat_scan=True), st)
+    assert int(out.n_bits[0]) == 0
     with pytest.raises(ValueError, match="multiple of 8"):
         TB.bpsk_block_batch(CF(x.re[:, :9560], x.im[:, :9560]), cfg, st)
 

@@ -188,16 +188,18 @@ def test_eligibility_matches_jax(monkeypatch, rate, t_len, tunings, flags):
 
 
 def test_what_still_raises():
-    """Every tuning mode takes a branch now; compat_scan (not ported) and a
-    block that is not whole bit periods raise."""
+    """Every tuning mode and compat_scan take a branch now
+    (tests/test_torch_compat_scan.py holds compat_scan's); a block that is
+    not whole bit periods raises."""
     cfg = TB.BpskConfig(rate=96000)
     st = TB.bpsk_init_batch(cfg, 1, "cpu")
     x = CF(torch.zeros(1, 38400), torch.zeros(1, 38400))
     for tun, flags in ((12345.0, {}), (12000.05, {}), (12000.0,
                                                       {"dofft": True})):
         TB.bpsk_block_batch_spectrum(x, cfg._replace(**flags), st, [tun])
-    with pytest.raises(NotImplementedError, match="compat_scan"):
-        TB.bpsk_block_batch_spectrum(x, cfg._replace(compat_scan=True), st)
+    _, out, _ = TB.bpsk_block_batch_spectrum(
+        x, cfg._replace(compat_scan=True), st)
+    assert int(out.n_bits[0]) == 0
     with pytest.raises(ValueError, match="multiple of 8"):
         TB.bpsk_block_batch_spectrum(CF(x.re[:, :38360], x.im[:, :38360]),
                                      cfg, st)

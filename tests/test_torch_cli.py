@@ -447,9 +447,9 @@ def test_cli_config_schema_demod(tmp_path, capsys):
 
 
 def test_cli_tensor_commands_default_to_the_card(tmp_path):
-    """``demod`` and ``fir`` run on ``cuda`` unless ``--device cpu`` is
-    given, so without a card they raise rather than run on the CPU; ``ui``
-    is not offered."""
+    """``demod``, ``fir`` and ``ui`` run on ``cuda`` unless ``--device
+    cpu`` is given, so without a card they raise rather than run on the
+    CPU."""
     import torch
 
     if torch.cuda.is_available():
@@ -459,5 +459,5 @@ def test_cli_tensor_commands_default_to_the_card(tmp_path):
               str(tmp_path / "a.raw")])
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         main(["--seconds", "1", "fir", "noise"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         main(["ui"])

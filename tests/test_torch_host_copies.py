@@ -1,14 +1,15 @@
 """The port keeps its own copies of the JAX package's JAX-free host modules
 (``fec.tables``, ``fec.ref_numpy``, ``io.convert``, ``io.sources``,
 ``io.flac``, ``io.framer``, ``io.recorder``, ``io.live``, ``io.fcd``,
-``runtime.pubsub``, ``runtime.log``, ``runtime.config``, ``display.*``)
-so that it imports nothing of ``jsdr_tpu``.
+``runtime.pubsub``, ``runtime.log``, ``runtime.config``, ``display.*``,
+and the shell's model in ``app.tui``) so that it imports nothing of
+``jsdr_tpu``.
 
 These tests hold that rule and the copies: an AST scan of every module of
 the port and of ``chip_smoke.py`` for imports of ``jax`` or ``jsdr_tpu``,
 byte equality of the copies' tables and outputs with the reference's,
 and, for the verbatim copies, equal code (the syntax tree without the
-module docstring)."""
+module docstring; for ``app.tui``, of each copied class and function)."""
 
 import ast
 import struct
@@ -39,8 +40,12 @@ SCANNED = sorted((ROOT / "jsdr_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 # copied without a change to their code
 VERBATIM = ("io/framer.py", "io/recorder.py", "io/live.py", "io/fcd.py",
+            "io/convert.py", "io/flac.py",
             "runtime/pubsub.py", "runtime/log.py", "runtime/config.py",
             "display/phase_scope.py")
+# the TUI's classes and functions copied without a change to their code
+# (the module around them is ported: its stages take a torch device)
+TUI_COPIED = ("_SHADES", "DEMOD_MODES", "Controls", "TuiModel", "decode_key")
 
 
 def _forbidden(name: str) -> bool:
@@ -189,8 +194,28 @@ def test_verbatim_copy_equals_the_reference(rel):
                                                           / rel)
     for new in ("runtime/executor.py", "runtime/state.py",
                 "io/convert_device.py", "ops/nco.py", "demod/fft_tuner.py",
-                "demod/am_fm.py", "app/main.py"):
+                "demod/am_fm.py", "app/main.py", "app/tui.py",
+                "io/native.py"):
         assert ROOT / "jsdr_tpu_torch" / new in SCANNED
+
+
+def _top_level(path: Path) -> dict:
+    """The syntax tree of each top-level class, function and assignment
+    of a module, by name."""
+    out = {}
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1:
+            out[getattr(node.targets[0], "id", "")] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("name", TUI_COPIED)
+def test_tui_copied_code_equals_the_reference(name):
+    got = _top_level(ROOT / "jsdr_tpu_torch" / "app" / "tui.py")
+    want = _top_level(ROOT / "jsdr_tpu" / "app" / "tui.py")
+    assert name in got and got[name] == want[name]
 
 
 def test_framer_recorder_and_live_sources_equal_the_reference(tmp_path):
