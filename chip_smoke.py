@@ -101,6 +101,13 @@ DEMOD_SHAPE = (64, 960_000)
 DEMOD_BLOCKS = 3
 DOFFT_STREAMS = tuple((3300.0 + 1150.0 * k, 16 if k == 9 else k)
                       for k in range(16))
+# phase 17 (parallel/): frames for the manual instances, the auto-tuned
+# instances' carrier as a fraction of the rate (30 kHz at 96 kS/s, in the
+# upper half-band they search), how many auto-tune, and the segment
+PAR_CARRIERS = (7500.0, 13500.0, 19500.0)
+PAR_AUTO = 0.3125
+PAR_AUTO_N = 8
+PAR_SEGMENT_S = 2.4
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): fp32 outside the tensor
 # cores, and device memory
 PEAK_FLOPS = 67e12
@@ -276,6 +283,9 @@ def main() -> int:
 
     # ---- phase 16: the native IO library ---------------------------------
     phase_native_io(np, tag)
+
+    # ---- phase 17: parallel/ — the mesh Session, TP, PP and NCCL ---------
+    phase_parallel(torch, np, dev, rng, tag)
 
     need("jax" not in sys.modules and "jsdr_tpu" not in sys.modules,
          "jax or the JAX package was imported")
@@ -2638,6 +2648,391 @@ def phase_native_io(np, tag):
           f"S16LE conversion {t_fast:.3f} ms native, {t_plain:.3f} ms numpy, "
           f"byte-equal; FLAC decode byte-equal to the pure-Python decoder; "
           f"calls {dict(native.calls)}")
+
+
+def parallel_signal(rate: int, seconds: float):
+    """One stream at ``rate`` for phase 17: AO-40 frames at PAR_CARRIERS
+    (for the manual instances) and at rate * PAR_AUTO (in the upper
+    half-band the track_high auto-tuners search), each from its own
+    payload (default_rng(700 + i)), starting 0.1 s in, so a frame
+    straddles a 2.4 s segment boundary; noise rms 0.05. Returns (complex64
+    samples, {carrier Hz: payload})."""
+    from jsdr_tpu_torch.io.sources import synth_bpsk_stream
+
+    n = int(seconds * rate)
+    sig = np.zeros(n, np.complex64)
+    payloads = {}
+    for i, c in enumerate(PAR_CARRIERS + (rate * PAR_AUTO,)):
+        pay = np.random.default_rng(700 + i).integers(0, 256, (1, 256),
+                                                      dtype=np.uint8)
+        one = synth_bpsk_stream(pay, rate=rate, carrier_offset=c,
+                                amplitude=0.25, preamble_bits=200,
+                                noise_rms=0.0, seed=i)
+        at = rate // 10
+        need(at + len(one) <= n, "phase 17 frames longer than the run")
+        sig[at:at + len(one)] += one
+        payloads[c] = pay[0]
+    noise = np.random.default_rng(SEED + 17).standard_normal((2, n)) * 0.05
+    return (sig + noise[0] + 1j * noise[1]).astype(np.complex64), payloads
+
+
+def par_instances(rate: int):
+    """Phase 17's 128 instances: tunings over the 21 multiples of 750 Hz
+    from 6000 to 21000 Hz, the last PAR_AUTO_N of them auto-tuned (dofft)
+    over the upper half-band (track_high). Returns (tunings, dofft flags,
+    the indices of the instances that carry a frame)."""
+    s = MAIN_SHAPE[0]
+    tunings = 6000.0 + 750.0 * (np.arange(s) % 21)
+    auto = np.arange(s) >= s - PAR_AUTO_N
+    carrier = [i for i in range(s) if auto[i] or tunings[i] in PAR_CARRIERS]
+    return tunings, auto, carrier
+
+
+def par_equal(torch, out, ref, rows, what: str) -> None:
+    """Windows, hits, hit_corr, bits and n_bits equal on ``rows``."""
+    idx = torch.as_tensor(rows, device=out.n_hits.device)
+    for f in ("windows", "n_hits", "hit_corr", "bits", "n_bits"):
+        need(torch.equal(getattr(out, f)[idx], getattr(ref, f)[idx]),
+             f"{what}: {f} differs on the carrier instances")
+
+
+def par_state_close(torch, got, want, rows, what: str) -> float:
+    """The carried state of ``rows`` within rtol 2e-4, atol 1e-6; returns
+    the largest relative difference of the float leaves."""
+    from jsdr_tpu_torch.runtime.state import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a[rows].double(), b[rows].double()
+        need(bool(((a - b).abs() <= 1e-6 + 2e-4 * b.abs()).all()),
+             f"{what}: carried state outside rtol 2e-4")
+        worst = max(worst, float(((a - b).abs() / (b.abs() + 1e-30)).max()))
+    return worst
+
+
+def par_times(torch, step, inputs, reps: int = 5) -> list:
+    """Host-clock ms of ``reps`` calls ``step(x)`` after one warm-up, each
+    on the next of ``inputs`` and ending in a read value."""
+    step(inputs[-1])
+    ms = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(step(inputs[i % len(inputs)]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def fmt_ms(ms) -> str:
+    return (f"{np.mean(ms):.3f} ms mean ({min(ms):.3f}-{max(ms):.3f}, "
+            f"{len(ms)} steps)")
+
+
+def phase_parallel(torch, np, dev, rng, tag):
+    """Phase 17: ``parallel/`` on the card (the counterpart of
+    ``__graft_entry__.py:58 dryrun_multichip``), 8 shards of one process
+    on one card.
+
+    (a) the production mesh path: a Session of TelemetryStage(mesh=2x4)
+    (128 instances, 8 of them auto-tuned over the upper half-band) beside
+    SpectrumStage(waterfall_width=960), on one 96 kS/s stream of raw
+    int16 chunks in two chained 2.4 s segments; every carrier instance's
+    windows, hits, hit_corr, bits and n_bits bit-equal to the card's
+    bpsk_block_batch chain on the same blocks, its straddling frame
+    decoded to its payload, state within rtol 2e-4; an off-contract shape
+    raises; the same at 192 kS/s, and a 4x2 mesh equal to the 2x4 one;
+    the step's time at 2x4 and 1x1 beside bpsk_block_batch's. (b)
+    tp_spectrum over sp=4 at n = 230,400 on 128 rows against
+    spectrum_block, and tp_fft's time beside torch.fft.fft's. (c) the
+    pipeline at pp=3 x dp=1 and pp=2 x dp=2 against the sequential chain
+    + fec_decode, with its ms per tick. (d) init_multihost on NCCL with
+    one process and an all_reduce over the mesh that spans the world.
+    Kernel 5's launches are counted around (a), kernels 1 and 2 around
+    (c)."""
+    import io
+    import socket
+
+    import torch.distributed as dist
+
+    from jsdr_tpu_torch.demod.bpsk import (BpskConfig, bpsk_block_batch,
+                                           bpsk_init_batch)
+    from jsdr_tpu_torch.fec.decoder import fec_decode
+    from jsdr_tpu_torch.io.convert import complex_to_s16le
+    from jsdr_tpu_torch.ops.cplx import CF, from_complex
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.psd_waterfall import psd_waterfall
+    from jsdr_tpu_torch.ops.spectrum import spectrum_block
+    from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
+    from jsdr_tpu_torch.parallel import (init_multihost, make_mesh,
+                                         make_pp_mesh, pipeline_flush,
+                                         pipeline_init, pipelined_telemetry,
+                                         sharded_telemetry_step, tp_fft,
+                                         tp_spectrum, valid_block_samples)
+    from jsdr_tpu_torch.parallel.pipeline import _index
+    from jsdr_tpu_torch.runtime.executor import (Session, SpectrumStage,
+                                                 TelemetryStage)
+    from jsdr_tpu_torch.runtime.log import Logger
+
+    t_phase = time.perf_counter()
+    s = MAIN_SHAPE[0]
+
+    # ---- (a) the mesh Session ---------------------------------------------
+    rate = 96000
+    seg = valid_block_samples(rate, 4, True, PAR_SEGMENT_S)
+    need(seg == 230400, f"2.4 s segment of {seg} samples")
+    tunings, auto, carrier = par_instances(rate)
+    sig, payloads = parallel_signal(rate, 2 * seg / rate)
+    raw = np.frombuffer(complex_to_s16le(sig), "<i2")
+    chunks = [raw[i:i + rate // 5] for i in range(0, len(raw), rate // 5)]
+    mesh = make_mesh(dp=2, sp=4, device=dev)
+    cfg = BpskConfig(rate=rate)
+    stage = TelemetryStage(cfg, tunings, dofft=auto, track_high=auto,
+                           sync_every=2, mesh=mesh, device=dev)
+    calls = []
+    sharded = stage._sharded
+
+    def spy(iq, st, *a, **k):
+        out, new = sharded(iq, st, *a, **k)
+        calls.append((iq, out))
+        return out, new
+
+    stage._sharded = spy
+    log = io.StringIO()
+    session = Session(source=iter(chunks), logger=Logger(stream=log),
+                      block_samples=TelemetryStage.block_samples_for(
+                          cfg, mesh, auto, PAR_SEGMENT_S), device=dev)
+    got = {"telemetry-frame": [], "waterfall-line": []}
+    session.pubsub.listen(lambda t, v: got[t].append(v) if t in got
+                          else None)
+    psd_waterfall.launches = 0
+    n = session.run([SpectrumStage(rate, waterfall_width=960), stage])
+    k5 = psd_waterfall.launches
+    need(n == 2 and session.dropped_blocks == {}
+         and "failed" not in log.getvalue(),
+         f"mesh session: {n} blocks, dropped {session.dropped_blocks}, "
+         f"log {log.getvalue()[:300]}")
+    need(k5 == n, f"mesh session: kernel 5 launched {k5} times for {n} "
+         "blocks")
+    need(all(x.shape == (24, 960) for x in got["waterfall-line"]),
+         "mesh session: waterfall lines misshapen")
+    st_ref = bpsk_init_batch(cfg, s, dev)
+    refs = []
+    for iq, out in calls:
+        ref, st_ref = bpsk_block_batch(iq, cfg, st_ref, tunings, dofft=auto,
+                                       track_high=auto)
+        par_equal(torch, out, ref, carrier, "mesh session 2x4")
+        refs.append(ref)
+    worst = par_state_close(torch, stage.state, st_ref, carrier,
+                            "mesh session 2x4")
+    want_pay = {i: payloads[rate * PAR_AUTO if auto[i] else tunings[i]]
+                for i in carrier}
+    ok = [(f["demod"], f["payload"].tobytes())
+          for f in got["telemetry-frame"] if f["ok"]]
+    need(all(ok.count((i, want_pay[i].tobytes())) == 1 for i in carrier),
+         "mesh session: a carrier instance did not decode its payload once")
+    need(int(calls[0][1].n_hits[carrier].sum()) == 0,
+         "mesh session: a frame ended in the first segment")
+    step24 = sharded_telemetry_step(mesh, rate=rate)
+    try:
+        step24(CF(*(torch.zeros((s, 96032), device=dev),) * 2),
+               bpsk_init_batch(cfg, s, dev))
+        need(False, "an off-contract shape did not raise")
+    except ValueError as e:
+        need("whole decimated bit groups" in str(e), f"wrong error: {e}")
+    # a 4x2 mesh gives the 2x4 mesh's results
+    step42 = sharded_telemetry_step(make_mesh(dp=4, sp=2, device=dev),
+                                    rate=rate)
+    st42 = bpsk_init_batch(cfg, s, dev)
+    for iq, out in calls:
+        o42, st42 = step42(iq, st42, tunings, dofft=auto, track_high=auto)
+        par_equal(torch, o42, out, carrier, "4x2 mesh against 2x4")
+    print(f"{tag} parallel (a): Session + TelemetryStage(mesh=2x4: 8 shards "
+          f"on {dev}) + SpectrumStage(waterfall 960), {s} instances "
+          f"({int(auto.sum())} auto-tuned, upper half-band), {n} chained "
+          f"{seg}-sample segments: the {len(carrier)} carrier instances' "
+          f"windows, hits, corr, bits bit-equal to the card's "
+          f"bpsk_block_batch, each straddling frame decoded once to its "
+          f"payload ({len(ok)} good frames), state within {worst:.2e} "
+          f"relative; kernel 5 launched {k5} times; a 4x2 mesh equal; an "
+          "off-contract shape raises")
+
+    # timed: the step at 2x4 and 1x1 beside bpsk_block_batch, 2.4 s
+    # segments of the same stream, the input changed every step
+    base = calls[0][0]
+    inputs = [CF(*(torch.roll(x[0], 7919 * i).expand(s, -1)
+                   for x in base)) for i in range(5)]
+    times = {}
+    for label, fn in (
+            ("2x4", sharded_telemetry_step(mesh, rate=rate)),
+            ("1x1", sharded_telemetry_step(make_mesh(dp=1, sp=1,
+                                                     device=dev),
+                                           rate=rate)),
+            ("bpsk_block_batch", None)):
+        st_t = [bpsk_init_batch(cfg, s, dev)]
+
+        def one(x, fn=fn, st_t=st_t):
+            if fn is None:
+                out, st_t[0] = bpsk_block_batch(x, cfg, st_t[0], tunings,
+                                                dofft=auto, track_high=auto)
+            else:
+                out, st_t[0] = fn(x, st_t[0], tunings, dofft=auto,
+                                  track_high=auto)
+            return out.n_hits.sum()
+
+        times[label] = par_times(torch, one, inputs)
+    print(f"{tag} parallel (a) timing, one 2.4 s segment x {s} instances "
+          "(mixed mode, host clock, each ending in a read): " + "; ".join(
+              f"{k} {fmt_ms(v)}" for k, v in times.items()))
+
+    # 192 kS/s (m = 20): the sharded step against bpsk_block_batch
+    rate2 = 192000
+    seg2 = valid_block_samples(rate2, 4, True, PAR_SEGMENT_S)
+    sig2, pay2 = parallel_signal(rate2, 2 * seg2 / rate2)
+    cfg2 = BpskConfig(rate=rate2)
+    tun2, auto2, carrier2 = par_instances(rate2)
+    step2 = sharded_telemetry_step(mesh, rate=rate2)
+    st_a, st_b = bpsk_init_batch(cfg2, s, dev), bpsk_init_batch(cfg2, s, dev)
+    hits2 = 0
+    for b in range(2):
+        one = from_complex(sig2[b * seg2:(b + 1) * seg2], dev)
+        x = CF(one.re.expand(s, -1), one.im.expand(s, -1))
+        out, st_a = step2(x, st_a, tun2, dofft=auto2, track_high=auto2)
+        ref, st_b = bpsk_block_batch(x, cfg2, st_b, tun2, dofft=auto2,
+                                     track_high=auto2)
+        par_equal(torch, out, ref, carrier2, "192 kS/s 2x4")
+        hits2 += int(out.n_hits[carrier2].sum())
+    need(hits2 == len(carrier2), f"192 kS/s: {hits2} hits on "
+         f"{len(carrier2)} carrier instances")
+    worst2 = par_state_close(torch, st_a, st_b, carrier2, "192 kS/s 2x4")
+    print(f"{tag} parallel (a) at {rate2} S/s (m=20), 2 x {seg2} samples: "
+          f"the {len(carrier2)} carrier instances bit-equal to "
+          f"bpsk_block_batch, one frame each; state within {worst2:.2e}")
+
+    # ---- (b) tensor-parallel FFT -----------------------------------------
+    n_tp = 230400
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tmesh = make_mesh(dp=1, sp=4, device=dev)
+    t = torch.arange(n_tp, device=dev, dtype=torch.float64)
+    hz = 5.0 * torch.randint(-9000, 9000, (s, 1), device=dev, generator=g)
+    ph = 2 * np.pi * torch.remainder(hz * t, rate) / rate
+    # tones + noise rms 0.01 (the reference test's signal,
+    # tests/test_parallel.py:434). Its 0.15 dB holds at or above each
+    # row's median, the noise floor: float32 DFT error scales with a
+    # row's energy, and among 128 x 230,400 noise bins the deepest nulls
+    # fall ~80 dB below the floor, where torch.fft itself is ~0.3 dB from
+    # a float64 FFT (on the CPU); their largest difference and the
+    # amplitude error over the row's RMS are printed
+    tone = CF(*((0.5 * f(ph)).float() + 0.01 * torch.randn(
+        (s, n_tp), device=dev, generator=g) for f in (torch.cos, torch.sin)))
+    db, freq, peak = tp_spectrum(tmesh, n_tp, float(rate))(tone)
+    ref = spectrum_block(tone, rate=float(rate), window=True)
+    diff = (db - ref.psd).abs()
+    db_err = float(diff[ref.psd >= ref.psd.median(dim=1,
+                                                  keepdim=True).values].max())
+    amp = torch.pow(10.0, db.double() / 20)
+    amp_ref = torch.pow(10.0, ref.psd.double() / 20)
+    amp_err = float(((amp - amp_ref).abs()
+                     / amp_ref.square().mean(dim=1, keepdim=True).sqrt()
+                     ).max())
+    need(db_err <= 0.15, f"tp_spectrum: {db_err} dB from spectrum_block at "
+         "or above the floor")
+    need(torch.equal(freq, ref.peak_freq)
+         and torch.equal(freq.long(), hz[:, 0].long()),
+         "tp_spectrum: peak Hz differ")
+    pk_err = float((peak - ref.peak_db).abs().max())
+    need(pk_err <= 1e-3, f"tp_spectrum: peaks {pk_err} dB apart")
+    fft = tp_fft(tmesh, n_tp)
+    rnd = [CF(*(torch.randn((s, n_tp), device=dev, generator=g)
+                for _ in range(2))) for _ in range(2)]
+    y = fft(rnd[0])
+    z = torch.fft.fft(torch.complex(*rnd[0]))
+    fft_err = float(torch.maximum((y.re - z.real).abs(),
+                                  (y.im - z.imag).abs()).max())
+    need(fft_err <= n_tp * 2e-6, f"tp_fft: {fft_err} from torch.fft.fft")
+    tp_ms = time_ms(torch, lambda x: fft(x).re, [(x,) for x in rnd], 5)
+    lib_ms = time_ms(torch, lambda x: torch.fft.fft(torch.complex(*x)).real,
+                     [(x,) for x in rnd], 5)
+    print(f"{tag} parallel (b): tp_spectrum over sp=4 at n={n_tp} (n1 = n2 "
+          f"= 480) on {s} rows (tones + noise rms 0.01): dB within "
+          f"{db_err:.4f} of spectrum_block at or above the floor "
+          f"({float(diff.max()):.4f} in the deepest nulls; amplitude within "
+          f"{amp_err:.2e} of the row's RMS), "
+          f"peaks within {pk_err:.2e} dB, peak Hz equal; tp_fft within "
+          f"{fft_err:.3e} of torch.fft.fft (limit {n_tp * 2e-6:.3f}); "
+          f"{tp_ms:.3f} ms per [{s}, {n_tp}] transform, torch.fft.fft "
+          f"{lib_ms:.3f} ms (event-timed, 5 calls)")
+
+    # ---- (c) the pipeline --------------------------------------------------
+    n_mb = 6
+    sigp, payp = parallel_signal(rate, n_mb)
+    one = from_complex(sigp, dev)
+    blocks = CF(*(x.reshape(n_mb, rate)[:, None].expand(n_mb, s, rate)
+                  for x in one))
+    seq, st_s = [], bpsk_init_batch(cfg, s, dev)
+    for b in range(n_mb):
+        o, st_s = bpsk_block_batch(CF(blocks.re[b], blocks.im[b]), cfg, st_s,
+                                   tunings, dofft=auto, track_high=auto)
+        seq.append(o)
+    for n_stages, dp in ((3, 1), (2, 2)):
+        run = pipelined_telemetry(make_pp_mesh(n_stages, dp, device=dev),
+                                  rate=rate)
+        carry = pipeline_init(cfg, s, rate, n_stages, device=dev)
+        mix_decimate.launches = timing_recover_batch.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, carry = run(blocks, carry, tunings, dofft=auto,
+                         track_high=auto)
+        int(out.telem.n_hits.sum())
+        tick_ms = (time.perf_counter() - t0) * 1e3 / n_mb
+        last, carry = pipeline_flush(run, carry, s, rate, tunings,
+                                     dofft=auto, track_high=auto)
+        k1, k2 = mix_decimate.launches, timing_recover_batch.launches
+        need(k1 == 2 * n_mb and k2 == n_mb, f"pipeline pp={n_stages}: "
+             f"kernel 1 launched {k1}, kernel 2 {k2} times")
+        lat = n_stages - 1
+        pipe = ([_index(out, i) for i in range(lat, n_mb)]
+                + [_index(last, i) for i in range(lat)])
+        need(not out.valid[:lat].any() and all(bool(p.valid) for p in pipe),
+             f"pipeline pp={n_stages}: validity")
+        frames = 0
+        for p, r in zip(pipe, seq):
+            par_equal(torch, p.telem, r, list(range(s)),
+                      f"pipeline pp={n_stages} x dp={dp}")
+            if n_stages == 3:
+                res = fec_decode(r.windows)
+                live = (torch.arange(r.windows.shape[1], device=dev)[None]
+                        < r.n_hits[:, None])
+                need(torch.equal(p.fec_ok, res.ok & live)
+                     and torch.equal(p.fec_payload[live], res.payload[live]),
+                     "pipeline FEC differs from fec_decode")
+                frames += int(p.fec_ok.sum())
+        if n_stages == 3:
+            need(frames >= len(carrier), f"pipeline FEC: {frames} frames")
+        print(f"{tag} parallel (c): pipeline pp={n_stages} x dp={dp}, {s} "
+              f"instances, {n_mb} ticks of 1 s + flush: equal to the "
+              f"sequential chain{' + fec_decode' if n_stages == 3 else ''} "
+              f"with {lat} ticks of latency on all instances"
+              f"{f' ({frames} frames decoded in-pipeline)' if frames else ''}"
+              f"; kernel 1 launched {k1}, kernel 2 {k2} times; "
+              f"{tick_ms:.3f} ms per tick (host clock, {n_mb} ticks)")
+
+    # ---- (d) one process on NCCL ----------------------------------------
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_multihost(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        need(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        wmesh = make_mesh(device=dev)            # every process on dp
+        x = torch.arange(8.0, device=dev)[None]
+        tot = wmesh.psum(x, "dp")
+        need(torch.equal(tot, x[0]), "NCCL all_reduce over the world")
+        print(f"{tag} parallel (d): init_multihost on {dist.get_backend()} "
+              f"(1 process, {wmesh}); the dp all_reduce over the mesh that "
+              f"spans the world returned its input")
+    finally:
+        dist.destroy_process_group()
+    print(f"{tag} parallel: phase 17 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

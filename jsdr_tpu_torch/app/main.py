@@ -40,8 +40,13 @@ using the REFERENCE's key schema (audio-rate, audio-ic/qc, fft-hamming,
 demod-*, FUNcube<n>-bpsk-*, jsdr-funcube-demods — jsdr.java:49-57,
 JavaAudio.java:18-23, demod.java:32-37, FUNcubeBPSKDemod.java:97-99);
 explicit CLI flags override it, like the reference's key=val overrides
-(jsdr.java:256-265). ``--mesh`` (``telemetry``, ``ui``) raises
-NotImplementedError until ``parallel/`` is ported (ROADMAP.md).
+(jsdr.java:256-265).
+
+``--mesh DPxSP`` (or ``auto``; ``telemetry``, ``ui``) runs the telemetry
+instances through the sharded step (:mod:`jsdr_tpu_torch.parallel`): dp
+shards the instances, sp the time axis, all of the mesh's shards on the
+``--device``. ``telemetry --mesh`` always takes the Session path, in
+blocks that split evenly over sp.
 """
 
 from __future__ import annotations
@@ -170,6 +175,23 @@ def _is_live(name: str) -> bool:
     return name.startswith(("pipe:", "capture:")) or name in ("-", "fcd")
 
 
+def _parse_mesh(spec, device):
+    """'DPxSP' / 'auto' -> a ("dp", "sp") mesh of shards on ``device``, or
+    None when no mesh was requested (the reference's ``_parse_mesh``; the
+    production entry to the multi-device path)."""
+    if not spec:
+        return None
+    from ..parallel import make_mesh
+    if spec == "auto":
+        return make_mesh(device=device)          # every shard on dp
+    try:
+        dp, sp = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {spec!r}: expected DPxSP (e.g. 2x4) "
+                         "or 'auto'")
+    return make_mesh(dp=dp, sp=sp, device=device)
+
+
 def _live_spec(name: str, rate: int) -> str:
     """Resolve 'fcd' to the dongle's capture device (FCD.java:235-259)."""
     if name == "fcd":
@@ -264,7 +286,8 @@ def cmd_telemetry_stream(args) -> int:
     """Streaming telemetry: live pipe/capture ingest (or paced replay)
     -> N batched demod instances -> decoded frames printed as they
     arrive — the running application loop of the reference's FUNcube
-    tabs, on the port's Session executor."""
+    tabs, on the port's Session executor. With ``--mesh DPxSP`` the same
+    Session runs the sharded step (instances over dp, time over sp)."""
     from pathlib import Path
 
     from ..demod.bpsk import BpskConfig
@@ -274,6 +297,7 @@ def cmd_telemetry_stream(args) -> int:
 
     rate = args.rate
     dev_conv = args.device_convert
+    mesh = _parse_mesh(args.mesh, args.device)
     if _is_live(args.source):
         src = StreamSource(_live_spec(args.source, rate), rate=rate,
                            i_corr=args.icorr, q_corr=args.qcorr,
@@ -305,8 +329,8 @@ def cmd_telemetry_stream(args) -> int:
             print(f"  {off:3d}: {row}")
 
     stage = TelemetryStage(cfg, tunings, dofft=dofft, track_high=track_high,
-                           device=args.device)
-    block_samples = TelemetryStage.block_samples_for(cfg, dofft=dofft)
+                           mesh=mesh, device=args.device)
+    block_samples = TelemetryStage.block_samples_for(cfg, mesh, dofft)
     session = Session(source=chunks, block_samples=block_samples,
                       i_corr=args.icorr, q_corr=args.qcorr,
                       device=args.device)
@@ -315,10 +339,16 @@ def cmd_telemetry_stream(args) -> int:
         session.checkpoint_path = Path(args.checkpoint)
         session.checkpoint_meta = {"rate": int(rate),
                                    "n_demods": len(tunings),
-                                   "mesh": None}
+                                   "mesh": None if mesh is None else
+                                   [int(mesh.shape["dp"]),
+                                    int(mesh.shape["sp"])]}
         if args.resume and session.checkpoint_path.exists():
             session.load_checkpoint([stage])
             print(f"resumed stream state from {args.checkpoint}")
+    if mesh is not None:
+        print(f"mesh dp={mesh.shape['dp']} x sp={mesh.shape['sp']}: "
+              f"{mesh.size} shards on {mesh.device}; block={block_samples} "
+              "samples")
     n = session.run([stage], max_blocks=args.blocks)
     if args.checkpoint:
         session.save_checkpoint([stage])
@@ -334,12 +364,7 @@ def cmd_telemetry(args) -> int:
     from ..ops.cplx import from_complex
     from ..runtime.device import require_device
 
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-device path (parallel/) is not "
-            "ported to jsdr_tpu_torch yet (ROADMAP.md, queue 1); use "
-            "jsdr-tpu for it")
-    if _is_live(args.source) or args.pace:
+    if _is_live(args.source) or args.pace or args.mesh:
         return cmd_telemetry_stream(args)
     dev = require_device(args.device)
     iq, rate = _load_iq(args, args.rate)

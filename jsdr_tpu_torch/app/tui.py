@@ -18,10 +18,10 @@ reads); tests/test_torch_host_copies.py holds them equal. The rest is
 ported onto the port's stages: ``PhaseTapStage`` copies its tap to the
 host explicitly, ``StageManager`` and ``PipelineThread`` take the torch
 ``device`` the stages hold their state on (``"cuda"`` by default; the
-pipeline thread makes it its current device), and the device mesh of
-``StageManager(mesh=...)`` raises NotImplementedError until
-``parallel/`` is ported. The curses runner (:func:`run_tui`) is a thin
-IO shell around the model.
+pipeline thread makes it its current device), and ``mesh`` (``ui
+--mesh``) shards the telemetry tabs over a device mesh of shards on that
+device (:mod:`jsdr_tpu_torch.parallel`). The curses runner
+(:func:`run_tui`) is a thin IO shell around the model.
 """
 
 from __future__ import annotations
@@ -629,8 +629,10 @@ class StageManager:
     in-place mutation takes effect on the same block. The telemetry and
     demod stages hold their state on ``device``; a re-tune reaches the
     running telemetry stage's host tuning list on the next block, without
-    a rebuild. A device mesh (``mesh``) raises NotImplementedError: the
-    port has no ``parallel/`` yet.
+    a rebuild. With a device mesh (``mesh``, on ``device``) the telemetry
+    stage runs the sharded step where the 0.1 s block cadence fits the
+    mesh's shard shapes, and degrades to one device with a status note
+    where it does not (the reference's rule, jsdr_tpu/app/tui.py:679-693).
     """
 
     name = "control-sync"
@@ -639,11 +641,6 @@ class StageManager:
     def __init__(self, model: TuiModel, rate: int, mesh=None,
                  device: Any = "cuda"):
         from ..runtime.device import require_device
-        if mesh is not None:
-            raise NotImplementedError(
-                "StageManager(mesh=...) needs parallel/, which is not "
-                "ported to jsdr_tpu_torch yet (ROADMAP.md, queue 1); use "
-                "jsdr-tpu for it")
         self.model = model
         self.rate = rate
         self.mesh = mesh
@@ -680,10 +677,25 @@ class StageManager:
             return None
         # per-instance dofft/upper run in ONE batched call (a mixed set
         # selects per stream; FUNcube<n>-bpsk-dofft/-upper)
+        mesh = self.mesh
+        if mesh is not None:
+            # the shell keeps the reference's 0.1 s block cadence; check
+            # it against the sharded step's shape contract and degrade to
+            # the single-device batched call with a status note where the
+            # mesh geometry cannot take 0.1 s blocks (e.g. dofft needs
+            # whole 0.1 s FFT blocks PER SHARD)
+            from ..parallel.sharded import _validate_sharded_shapes
+            try:
+                _validate_sharded_shapes(
+                    mesh.shape["dp"], self.rate // 10, mesh.shape["dp"],
+                    mesh.shape["sp"], self.rate, any(m.dofft))
+            except ValueError as e:
+                m.status = f"telemetry mesh off: {e}"[:160]
+                mesh = None
         return TelemetryStage(
             BpskConfig(rate=self.rate, tuning=m.tunings[0]),
             tunings=list(m.tunings), dofft=list(m.dofft),
-            track_high=list(m.track_high), device=self.device)
+            track_high=list(m.track_high), mesh=mesh, device=self.device)
 
     def _make_demod(self):
         from ..demod.am_fm import AmFmConfig
@@ -717,7 +729,10 @@ class StageManager:
         m = self.model
         self.spectrum.window = m.hamming
         if self.telem is not None:
-            self.telem.tunings = [float(t) for t in m.tunings]
+            # a mesh stage pads its instances to a multiple of dp with the
+            # last tuning; a re-tune keeps the padding
+            tun = [float(t) for t in m.tunings]
+            self.telem.tunings = tun + tun[-1:] * (self.telem.n - len(tun))
         if m.bpsk_dirty:
             m.bpsk_dirty = False
             self.telem = self._swap(self.telem, self._make_telem())
@@ -855,16 +870,14 @@ class PipelineThread(threading.Thread):
 def run_tui(args) -> int:
     """Entry point for the ``ui`` subcommand: curses shell around the
     model + pipeline thread on ``args.device`` (raises without a card
-    unless it is ``cpu``; ``--mesh`` raises NotImplementedError)."""
+    unless it is ``cpu``; ``--mesh DPxSP`` shards the telemetry tabs over
+    a mesh of shards on that device)."""
     import curses
 
     from ..runtime.device import require_device
-    if getattr(args, "mesh", None):
-        raise NotImplementedError(
-            f"ui --mesh {args.mesh}: the multi-device path (parallel/) is "
-            "not ported to jsdr_tpu_torch yet (ROADMAP.md, queue 1); use "
-            "jsdr-tpu for it")
+    from .main import _parse_mesh
     device = require_device(args.device)
+    mesh = _parse_mesh(getattr(args, "mesh", None), device)
     cfg = Config(args.config) if args.config else Config("jsdr.properties")
     pubsub = PubSub()
     controls = Controls()
@@ -875,7 +888,7 @@ def run_tui(args) -> int:
         controls.new_source = args.source
         controls.source_epoch += 1
     pipe = PipelineThread(model, args.rate, paced=not args.no_pace,
-                          device=device)
+                          mesh=mesh, device=device)
     pipe.start()
 
     def loop(scr):

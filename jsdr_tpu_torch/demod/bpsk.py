@@ -243,6 +243,15 @@ def _modmul_static(tu: torch.Tensor, m: int, den: int) -> torch.Tensor:
     return (tu % den) * (int(m) % den) % den
 
 
+def _modmul_traced(tu: torch.Tensor, k: torch.Tensor, den: int
+                   ) -> torch.Tensor:
+    """(k * tu) mod den for int tensors tu and k (any sign or size below
+    2^31): the values of the reference's int32 double-and-add
+    (jsdr_tpu/demod/bpsk.py:227), whose product in int32 would wrap, from
+    one int64 product of the two residues (each < den < 2^31)."""
+    return (tu.long() % den) * (k.long() % den) % den
+
+
 def nco_numerators(nu0: torch.Tensor, tu: torch.Tensor, n: int, den: int,
                    start: int = 1) -> torch.Tensor:
     """[..., n] exact numerators (nu0 + (start+i)*tu) mod den, int64."""
@@ -377,6 +386,53 @@ def _vco_pattern(vco_idx: torch.Tensor):
           + torch.arange(128, device=dev)[None, :]) % SAMPLES_PER_BIT
     return (torch.as_tensor(_VCO_COS, device=dev)[m8],
             torch.as_tensor(_VCO_SIN, device=dev)[m8])
+
+
+def _const_ema_trajectory(b: torch.Tensor, a: float, init: torch.Tensor,
+                          chunk: int = 128) -> torch.Tensor:
+    """Trajectory of y_g = a*y_{g-1} + b_g (y_{-1} = init) for a constant
+    decay ``a`` as chunked triangular matmuls — the reference's form
+    (jsdr_tpu/demod/bpsk.py:401), batched over leading dims.
+
+    b: [..., G, P]; init: [..., P]; returns [..., G, P]. Within a chunk
+    of L groups local[l] = sum_{j<=l} a^(l-j) b_j is one [L, L] lower-
+    triangular product; chunk carries compose through a [C, C] one; the
+    float64 host tables are rounded to float32 as the reference rounds
+    them, and the products run in true float32 (``require_device`` turns
+    TF32 off on a card)."""
+    *lead, g, p = b.shape
+    dev = b.device
+    l = min(chunk, max(8, 1 << (g - 1).bit_length())) if g < chunk else chunk
+    c = -(-g // l)
+    bt = F.pad(b, (0, 0, 0, c * l - g)).reshape(*lead, c, l, p
+                                                ).transpose(-1, -2)
+    k = np.arange(l)
+    tri_t = np.where(k[:, None] <= k[None, :],
+                     np.power(a, np.maximum(k[None, :] - k[:, None], 0)),
+                     0.0).astype(np.float32)
+    local = bt @ torch.as_tensor(tri_t, device=dev)        # [..., C, P, L]
+    cc = np.arange(c)
+    dec_l = float(a) ** l
+    inter = np.where(cc[:, None] > cc[None, :],
+                     np.power(dec_l, np.maximum(cc[:, None] - 1 - cc[None, :],
+                                                0)),
+                     0.0).astype(np.float32)
+    carry_b = torch.as_tensor(inter, device=dev) @ local[..., -1]  # [..., C, P]
+    pw_c = torch.as_tensor(np.power(dec_l, cc).astype(np.float32), device=dev)
+    carries = pw_c[:, None] * init[..., None, :] + carry_b
+    pw = torch.as_tensor(np.power(a, k + 1).astype(np.float32), device=dev)
+    traj = pw * carries[..., None] + local                 # [..., C, P, L]
+    return traj.transpose(-1, -2).reshape(*lead, c * l, p)[..., :g, :]
+
+
+def _extract_rows(w: torch.Tensor, starts: torch.Tensor, out_len: int
+                  ) -> torch.Tensor:
+    """w[s, start : start + out_len] for every start of each row: [S, L]
+    and [S, H] -> [S, H, out_len]. The reference's gather-free form
+    (jsdr_tpu/demod/bpsk.py:618) gives the same values."""
+    span = torch.arange(out_len, device=w.device)
+    return torch.gather(w[:, None, :].expand(-1, starts.shape[1], -1), 2,
+                        starts.long()[:, :, None] + span)
 
 
 def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
@@ -542,22 +598,20 @@ def soft_frames_from_bits(bits: torch.Tensor, n_bits: torch.Tensor,
     (windows [S, max_hits, 5200] u8, hit_corr [S, max_hits] i32, n_hits
     [S] i32, new_ring [S, 5199] i8); unused window slots are all 0x40."""
     w = torch.cat([ring, bits], dim=1)                # [S, 5199 + max_bits]
-    s, w_len = w.shape
+    w_len = w.shape[1]
     corr = sync_correlate(w)
     j = torch.arange(corr.shape[1], device=w.device)
     hits = (corr >= SYNC_THRESHOLD) & (j[None, :] < n_bits[:, None])
     hit_idx = _first_k_indices(hits, max_hits)
     hit_ok = hit_idx >= 0
     start = torch.clamp(torch.where(hit_ok, hit_idx, 0), 0, w_len - FEC_BITS)
-    span = torch.arange(FEC_BITS, device=w.device)
-    ext = torch.gather(w[:, None, :].expand(s, max_hits, w_len), 2,
-                       start[:, :, None] + span)      # [S, max_hits, 5200]
+    ext = _extract_rows(w, start, FEC_BITS)          # [S, max_hits, 5200]
     windows = torch.where((ext == 1) & hit_ok[:, :, None], 0xC0, 0x40
                           ).to(torch.uint8)
     hit_corr = torch.where(hit_ok, corr.gather(1, start), 0).to(torch.int32)
     n_hits = hit_ok.sum(dim=1).to(torch.int32)
-    ring_at = n_bits.long()[:, None] + span[None, :FEC_BITS - 1]
-    return windows, hit_corr, n_hits, w.gather(1, ring_at)
+    ring = _extract_rows(w, n_bits[:, None], FEC_BITS - 1)[:, 0]
+    return windows, hit_corr, n_hits, ring
 
 
 # ---------------------------------------------------------------------------

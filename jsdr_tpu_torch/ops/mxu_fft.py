@@ -19,6 +19,10 @@ import torch
 
 from .cplx import CF
 
+# the largest factor of a two-matmul DFT (the reference's _MAX_FACTOR);
+# parallel/tp.py splits its transforms under it
+_MAX_FACTOR = 512
+
 
 @functools.lru_cache(maxsize=32)
 def _dft_mats(n: int, sign: float) -> Tuple[np.ndarray, np.ndarray]:

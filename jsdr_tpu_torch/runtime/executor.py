@@ -20,12 +20,11 @@ reference's timers did under JAX's asynchronous dispatch. A stage that
 publishes host arrays every block (``SpectrumStage``) synchronises there,
 as the reference's does.
 
-The stages: ``SpectrumStage``, ``TelemetryStage``,
+The stages: ``SpectrumStage``, ``TelemetryStage`` (on one device, or
+sharded over a device mesh, :mod:`jsdr_tpu_torch.parallel`),
 ``SpectrumTelemetryStage``, ``DemodStage`` (AM/NFM/WFM audio, published
 as host arrays every block), ``AudioSinkStage`` and ``RecorderStage``
 (the interactive shell, :mod:`jsdr_tpu_torch.app.tui`, swaps them live).
-The one part not ported yet is ``parallel/`` (ROADMAP.md, queue 1): the
-device mesh of ``TelemetryStage(mesh=...)`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -265,9 +264,25 @@ class TelemetryStage(Stage):
     ``fec_decode`` call and publishes the frames in the reference's order
     (block, instance, hit).
 
-    ``mesh`` is not ported yet: a mesh raises NotImplementedError.
-    ``device`` (default ``"cuda"``) holds the state; the session must run
-    on it.
+    ``mesh``: an optional ("dp", "sp") :class:`~jsdr_tpu_torch.parallel.
+    mesh.Mesh` of one process — the production integration point of the
+    multi-device path (the analog of the reference shell wiring its N
+    demod tabs into the running system, jsdr.java:475-502). With a mesh,
+    every block runs through :func:`~jsdr_tpu_torch.parallel.sharded.
+    sharded_telemetry_step` (dp shards the demod instances, sp the time
+    axis with halo exchange); results and chained state equal the
+    single-device batched call's (module docstring of ``parallel.
+    sharded``). The instance list is padded up to a multiple of dp
+    (replicating the last instance; padding is dropped from published
+    results), and the session's ``block_samples`` must come from
+    :meth:`block_samples_for`. As in the reference, the mesh path takes
+    the lists as given: without ``tunings`` and padding every instance
+    runs at the sharded step's 12000 Hz, and without ``dofft`` /
+    ``track_high`` none auto-tunes (``jsdr_tpu/runtime/executor.py:301``,
+    ROADMAP.md queue 3).
+
+    ``device`` (default ``"cuda"``) holds the state — with a mesh, the
+    mesh's device; the session must run on it.
     """
 
     name = "telemetry"
@@ -276,38 +291,67 @@ class TelemetryStage(Stage):
                  sync_every: int = 4, mesh=None, max_hits: int = 4,
                  device: Any = "cuda"):
         from ..demod.bpsk import bpsk_init_batch
-        if mesh is not None:
-            raise NotImplementedError(
-                "TelemetryStage(mesh=...) needs parallel/, which is not "
-                "ported to jsdr_tpu_torch yet (ROADMAP.md, queue 1)")
         self.cfg = cfg
         self.tunings = (None if tunings is None
                         else [float(t) for t in tunings])
         self.n = 1 if tunings is None else len(self.tunings)
+        self.n_real = self.n            # instances the user asked for
         self.dofft = None if dofft is None else [bool(v) for v in dofft]
         self.track_high = (None if track_high is None
                            else [bool(v) for v in track_high])
         self.sync_every = max(1, int(sync_every))
         self.device = require_device(device)
+        self.mesh = mesh
         self._pending = []              # un-synced device block outputs
         self._n_blocks = 0
+        if mesh is None:
+            self.state = bpsk_init_batch(cfg, self.n, self.device)
+            return
+        from ..parallel.sharded import sharded_telemetry_step
+        if not _same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh's shards are on {mesh.device}, the "
+                             f"stage's device is {self.device}")
+        if mesh.spans_processes():
+            raise ValueError("TelemetryStage takes a mesh of one process: "
+                             "its Session feeds every instance the whole "
+                             "block")
+        dp = mesh.shape["dp"]
+        pad = (-self.n) % dp
+        if pad:                          # dp wants S % dp == 0
+            self.tunings = ((self.tunings or [cfg.tuning])
+                            + [self.tunings[-1] if self.tunings
+                               else cfg.tuning] * pad)
+            if self.dofft is not None:
+                self.dofft = self.dofft + [self.dofft[-1]] * pad
+            if self.track_high is not None:
+                self.track_high = self.track_high + [self.track_high[-1]] * pad
+            self.n += pad
+        self._sharded = sharded_telemetry_step(mesh, rate=cfg.rate,
+                                               max_hits=max_hits)
         self.state = bpsk_init_batch(cfg, self.n, self.device)
 
     @staticmethod
     def block_samples_for(cfg, mesh=None, dofft=None,
                           target_seconds: float = 1.0) -> int:
         """Session block size valid for this stage's execution path."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh needs parallel/, which is not ported to "
-                "jsdr_tpu_torch yet (ROADMAP.md, queue 1)")
-        return int(cfg.rate * target_seconds)
+        if mesh is None:
+            return int(cfg.rate * target_seconds)
+        from ..parallel.sharded import valid_block_samples
+        any_dofft = bool(np.any(dofft)) if dofft is not None else False
+        return valid_block_samples(cfg.rate, mesh.shape["sp"], any_dofft,
+                                   target_seconds)
 
     def process(self, block, session: Session):
         from ..demod.bpsk import bpsk_block_batch
-        out, self.state = bpsk_block_batch(
-            _broadcast(block, self.n), self.cfg, self.state, self.tunings,
-            dofft=self.dofft, track_high=self.track_high)
+        blocks = _broadcast(block, self.n)
+        if self.mesh is not None:
+            out, self.state = self._sharded(
+                blocks, self.state, self.tunings, dofft=self.dofft,
+                track_high=self.track_high)
+        else:
+            out, self.state = bpsk_block_batch(
+                blocks, self.cfg, self.state, self.tunings,
+                dofft=self.dofft, track_high=self.track_high)
         self._pending.append(out)
         self._n_blocks += 1
         if self._n_blocks % self.sync_every == 0:
@@ -327,15 +371,19 @@ class TelemetryStage(Stage):
         c = self.state.counters.cpu().numpy()
         session.pubsub.publish(
             "telemetry-counters",
-            {s: tuple(int(v) for v in c[s]) for s in range(self.n)})
-        for s in range(self.n):
+            {s: tuple(int(v) for v in c[s]) for s in range(self.n_real)})
+        for s in range(self.n_real):
             session.pubsub.publish(f"FUNcube{s}-bpsk-tune", tunings[s])
         # every hit of every pending block, in (block, instance, hit) order
+        # (mesh padding instances publish nothing)
         where, windows, corrs = [], [], []
         for out in pending:
-            hit = (torch.arange(out.windows.shape[1],
-                                device=out.n_hits.device)[None, :]
-                   < out.n_hits[:, None])
+            hit = ((torch.arange(out.windows.shape[1],
+                                 device=out.n_hits.device)[None, :]
+                    < out.n_hits[:, None])
+                   & (torch.arange(out.n_hits.shape[0],
+                                   device=out.n_hits.device)
+                      < self.n_real)[:, None])
             windows.append(out.windows[hit])
             corrs.append(out.hit_corr[hit])
             where.append(torch.nonzero(hit)[:, 0])

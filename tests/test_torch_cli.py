@@ -121,9 +121,23 @@ def test_cli_telemetry_stream_blocks_and_device_convert(tmp_path, capsys):
     assert f"    0: {row0}" in out
     assert out.strip().endswith("5 blocks streamed, frames=1, dropped=none")
     assert ck.exists()
-    with pytest.raises(NotImplementedError, match="--mesh 2x4"):
-        main(["telemetry", f"pipe:{path}", "--mesh", "2x4", "--device",
-              "cpu"])
+    # --mesh 2x4: the sharded step in the same Session prints the same
+    # frames as the JAX package's --mesh 2x4 (its 8 virtual CPU devices)
+    from jsdr_tpu.app.main import main as jax_main
+
+    frames = {}
+    for who, fn, dev in (("port", main, ["--device", "cpu"]),
+                         ("jax", jax_main, [])):
+        assert fn(["telemetry", f"pipe:{path}", "--tuning", "12000,9000",
+                   "--mesh", "2x4", *dev]) == 0
+        out = capsys.readouterr().out
+        assert "mesh dp=2 x sp=4" in out
+        assert out.strip().endswith("5 blocks streamed, frames=1, "
+                                    "dropped=none")
+        frames[who] = [ln for ln in out.splitlines()
+                       if ln.startswith(("demod", "  "))]
+    assert frames["port"] == frames["jax"]
+    assert "demod0@12000Hz corr=65 ok=True channel_errors=0" in frames["port"]
 
 
 def _auto_capture(tmp_path):

@@ -201,11 +201,27 @@ def test_spectrum_telemetry_stage_one_pass():
 
 
 def test_stage_and_session_devices():
+    """Block sizes for a mesh are the sharded step's valid ones, as in the
+    JAX package; a mesh whose shards sit on another device than the
+    stage's is refused."""
+    from jsdr_tpu.demod.bpsk import BpskConfig as JConfig
+    from jsdr_tpu.parallel import make_mesh as j_make_mesh
+    from jsdr_tpu.runtime.executor import TelemetryStage as JTelemetryStage
+    from jsdr_tpu_torch.parallel import make_mesh, valid_block_samples
+
     cfg = BpskConfig(rate=96000)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TelemetryStage(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TelemetryStage.block_samples_for(cfg, mesh=object())
+    for dp, sp in ((2, 4), (1, 8), (8, 1)):
+        mesh, jmesh = make_mesh(dp, sp, device="cpu"), j_make_mesh(dp, sp)
+        for rate in (96000, 192000):
+            for dofft in (None, [False, False], [False, True]):
+                want = valid_block_samples(rate, sp, bool(np.any(dofft)))
+                assert TelemetryStage.block_samples_for(
+                    BpskConfig(rate=rate), mesh, dofft) == want
+                assert JTelemetryStage.block_samples_for(
+                    JConfig(rate=rate), jmesh, dofft) == want
+    with pytest.raises(ValueError, match="mesh's shards"):
+        TelemetryStage(cfg, mesh=make_mesh(2, 4, device="cpu"),
+                       device="meta")
     assert TelemetryStage.block_samples_for(cfg) == 96000
 
     class OnMeta(Stage):
@@ -312,6 +328,93 @@ def test_telemetry_frames_match_the_jax_session(fuse_mf):
           for f in port["telemetry-frame"] if f["ok"]]
     assert sorted(ok) == [(0, pay[1].tobytes()), (1, pay[0].tobytes()),
                           (2, pay[1].tobytes())]
+
+
+def test_telemetry_stage_on_a_mesh_matches_the_jax_session(tmp_path):
+    """TelemetryStage(mesh=2x4) through a Session: the three instances of
+    the two-frame stream (padded to four for dp=2, the padding silent)
+    publish the same frames and counters as the JAX package's mesh
+    Session and as the single-device Session; the mesh stage's state
+    saves in the reference's format and loads into the JAX package."""
+    from jsdr_tpu.demod.bpsk import BpskConfig as JConfig
+    from jsdr_tpu.demod.bpsk import bpsk_init_batch as j_init
+    from jsdr_tpu.parallel import make_mesh as j_make_mesh
+    from jsdr_tpu.runtime.executor import Session as JSession
+    from jsdr_tpu.runtime.executor import TelemetryStage as JTelemetryStage
+    from jsdr_tpu.runtime.state import load_state as j_load
+    from jsdr_tpu_torch.demod.bpsk import state_to_numpy
+    from jsdr_tpu_torch.parallel import make_mesh
+    from jsdr_tpu_torch.runtime.state import save_state
+
+    chunks, pay = _two_frame_chunks()
+    mesh = make_mesh(dp=2, sp=4, device="cpu")
+    stage = TelemetryStage(BpskConfig(rate=96000), TWO_FRAME_TUNINGS,
+                           sync_every=4, mesh=mesh, device="cpu")
+    assert stage.n == 4 and stage.n_real == 3
+    s = Session(source=iter(chunks), block_samples=TelemetryStage.
+                block_samples_for(stage.cfg, mesh), i_corr=3, q_corr=-2,
+                device="cpu")
+    port = _listen(s, "telemetry-frame", "telemetry-counters")
+    s.run([stage])
+    js = JSession(source=iter(chunks), block_samples=96000, i_corr=3,
+                  q_corr=-2)
+    ref = _listen(js, "telemetry-frame", "telemetry-counters")
+    jstage = JTelemetryStage(JConfig(rate=96000), list(TWO_FRAME_TUNINGS),
+                             sync_every=4, mesh=j_make_mesh(dp=2, sp=4))
+    js.run([jstage])
+    assert s.dropped_blocks == {} and js.dropped_blocks == {}
+    single = _jax_telemetry_session()
+    for other in (ref, single):
+        assert port["telemetry-counters"] == other["telemetry-counters"]
+        assert len(port["telemetry-frame"]) == len(other["telemetry-frame"])
+        for p, r in zip(port["telemetry-frame"], other["telemetry-frame"]):
+            assert {k: v for k, v in p.items() if k != "payload"} == {
+                k: v for k, v in r.items() if k != "payload"}
+            assert np.array_equal(p["payload"], np.asarray(r["payload"]))
+    ok = [(f["demod"], f["payload"].tobytes())
+          for f in port["telemetry-frame"] if f["ok"]]
+    assert sorted(ok) == [(0, pay[1].tobytes()), (1, pay[0].tobytes()),
+                          (2, pay[1].tobytes())]
+    save_state(tmp_path / "mesh.npz", stage.state)
+    back = j_load(tmp_path / "mesh.npz", j_init(JConfig(rate=96000), 4))
+    import jax
+    for a, b in zip(jax.tree.leaves(back),
+                    jax.tree.leaves(state_to_numpy(stage.state))):
+        assert np.array_equal(np.asarray(a), b)
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_mesh_stage_without_lists_runs_as_the_jax_package(dp):
+    """The reference forwards ``tunings=None`` to the sharded step, whose
+    default is 12000 Hz, not ``cfg.tuning`` (jsdr_tpu/runtime/executor.py:
+    301, ROADMAP queue 3); the port copies it. A stage built for 9000 Hz
+    without lists therefore decodes the 12 kHz frame at dp=1 (no padding:
+    the list stays None) and not at dp=2 (padding writes cfg.tuning into
+    the list) — in both packages, frame for frame."""
+    from jsdr_tpu.demod.bpsk import BpskConfig as JConfig
+    from jsdr_tpu.parallel import make_mesh as j_make_mesh
+    from jsdr_tpu.runtime.executor import Session as JSession
+    from jsdr_tpu.runtime.executor import TelemetryStage as JTelemetryStage
+    from jsdr_tpu_torch.parallel import make_mesh
+
+    sig = _frame_signal()
+    got = []
+    for sess, stage, kw in (
+            (Session, TelemetryStage(BpskConfig(rate=96000, tuning=9000.0),
+                                     mesh=make_mesh(dp, 4, device="cpu"),
+                                     device="cpu"), {"device": "cpu"}),
+            (JSession, JTelemetryStage(JConfig(rate=96000, tuning=9000.0),
+                                       mesh=j_make_mesh(dp, 4)), {})):
+        s = sess(source=iter([sig]), block_samples=96000, **kw)
+        frames = _listen(s, "telemetry-frame")["telemetry-frame"]
+        s.run([stage])
+        got.append([(f["demod"], f["tuning"], f["ok"],
+                     np.asarray(f["payload"]).tobytes()) for f in frames])
+    assert got[0] == got[1]
+    if dp == 1:
+        assert got[0] == [(0, 9000.0, True, bytes(range(256)))]
+    else:
+        assert got[0] == []
 
 
 def test_checkpoint_resume_equals_an_uninterrupted_run(tmp_path):

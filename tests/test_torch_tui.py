@@ -325,15 +325,35 @@ def test_pipeline_thread_end_to_end(tmp_path):
 
 
 def test_stage_manager_mesh(tmp_path):
-    """ui --mesh: the port has no parallel/ yet, so a mesh raises
-    NotImplementedError (no degraded screen hides the missing module),
-    as the PipelineThread's and run_tui's do."""
-    model, _, _, _ = make_model(T, tmp_path, rate=96000, n_funcube=1)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        T.StageManager(model, 96000, mesh=object(), device="cpu")
-    args = types.SimpleNamespace(mesh="2x4", device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        T.run_tui(args)
+    """ui --mesh: the StageManager builds the telemetry stage on the
+    device mesh, and degrades (with a status note) when the shell's 0.1 s
+    block cadence cannot satisfy the mesh's shard-shape contract (dofft
+    needs whole 0.1 s blocks PER SHARD) — in both packages, with the same
+    note; the CLI's --mesh spec parses to the same meshes."""
+    from jsdr_tpu.app.main import _parse_mesh as j_parse_mesh
+    from jsdr_tpu_torch.app.main import _parse_mesh
+
+    notes = []
+    for tui, mesh, dev in ((J, j_parse_mesh("2x4"), {}),
+                           (T, _parse_mesh("2x4", "cpu"),
+                            {"device": "cpu"})):
+        assert dict(mesh.shape) == {"dp": 2, "sp": 4}
+        model, _, _, _ = make_model(tui, tmp_path, rate=96000, n_funcube=1)
+        mgr = tui.StageManager(model, 96000, mesh=mesh, **dev)
+        assert mgr.telem is not None and mgr.telem.mesh is mesh
+        assert mgr.telem.n == 2 and mgr.telem.n_real == 1   # dp padding
+        mgr.close()
+        model2, _, _, _ = make_model(tui, tmp_path, rate=96000, n_funcube=1)
+        keys(model2, ["5", "x"])                  # FUNcube tab, dofft on
+        mgr2 = tui.StageManager(model2, 96000, mesh=mesh, **dev)
+        assert mgr2.telem is not None and mgr2.telem.mesh is None
+        assert "mesh off" in model2.status
+        notes.append(model2.status)
+        mgr2.close()
+    assert notes[0] == notes[1]
+    assert _parse_mesh("auto", "cpu").shape == {"dp": 1, "sp": 1}
+    with pytest.raises(SystemExit, match="DPxSP"):
+        _parse_mesh("2by4", "cpu")
 
 
 def test_stage_manager_swaps(tmp_path):
@@ -410,16 +430,19 @@ def _signal(n_frames, carrier, seed):
     return sig, pay
 
 
-def _drive(tui, tmp_path, sig, script, cfg_text, **dev):
-    """Run ``sig`` in 0.1 s blocks through ``tui``'s StageManager and a
-    Session on the calling thread, applying ``script[b]``'s keys before
-    block b; returns the published topics and the recorder's bytes."""
+def _drive(tui, tmp_path, sig, script, cfg_text, mesh=None, n_funcube=2,
+           **dev):
+    """Run ``sig`` in 0.1 s blocks through ``tui``'s StageManager (on
+    ``mesh`` if given) and a Session on the calling thread, applying
+    ``script[b]``'s keys before block b; returns the published topics and
+    the recorder's bytes."""
     if tui is J:
         from jsdr_tpu.runtime.executor import Session
     else:
         from jsdr_tpu_torch.runtime.executor import Session
     (tmp_path / "jsdr.properties").write_text(cfg_text)
-    model, _, pubsub, _ = make_model(tui, tmp_path, rate=RATE, n_funcube=2)
+    model, _, pubsub, _ = make_model(tui, tmp_path, rate=RATE,
+                                     n_funcube=n_funcube)
     model.record_path = str(tmp_path / "rec.raw")
     got = {"telemetry-frame": [], "telemetry-counters": [], "fft-psd": [],
            "audio-out": []}
@@ -429,7 +452,7 @@ def _drive(tui, tmp_path, sig, script, cfg_text, **dev):
             got[topic].append(value)
 
     pubsub.listen(listen)
-    mgr = tui.StageManager(model, RATE, **dev)
+    mgr = tui.StageManager(model, RATE, mesh=mesh, **dev)
     telem0 = mgr.telem
 
     def source():
@@ -511,3 +534,52 @@ def test_retune_key_reaches_the_running_telemetry_stage(tmp_path):
     ok = [f for f in got["telemetry-frame"] if f["ok"]]
     assert [(f["demod"], f["tuning"]) for f in ok] == [(0, 9000.0)]
     assert ok[0]["payload"].tobytes() == pay[0].tobytes()
+
+
+def test_shell_on_a_mesh_equals_the_jax_package(tmp_path):
+    """ui --mesh 2x4: two FUNcube tabs through the sharded step under each
+    package's StageManager + Session, the second tab re-tuned in block
+    30: the same frames and counters as the JAX package's sharded shell;
+    then one tab (padded to dp=2 with its own tuning) keeps its padding
+    across a re-tune and decodes at the new tuning. (The JAX package's
+    shell drops the padding at a re-tune and its step then fails: ROADMAP
+    queue 3.)"""
+    from jsdr_tpu.parallel import make_mesh as j_make_mesh
+    from jsdr_tpu_torch.parallel import make_mesh
+
+    sig, pay = _signal(1, 12000.0, seed=21)
+    script = {30: ["6", "F", "9", "0", "0", "0", "enter"]}
+    cfg = ("jsdr-tpu-version=1\njsdr-funcube-demods=2\n"
+           "FUNcube0-bpsk-tuning=12000\nFUNcube1-bpsk-tuning=12000\n")
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    want, _, _, jmgr = _drive(J, tmp_path / "j", sig, script, cfg,
+                              mesh=j_make_mesh(dp=2, sp=4))
+    mesh = make_mesh(dp=2, sp=4, device="cpu")
+    got, _, telem0, mgr = _drive(T, tmp_path / "t", sig, script, cfg,
+                                 mesh=mesh, device="cpu")
+    assert jmgr.telem.mesh is not None
+    assert mgr.telem is telem0 and mgr.telem.mesh is mesh
+    assert mgr.telem.tunings == [12000.0, 9000.0]
+
+    def rows(frames):
+        return [(f["demod"], f["tuning"], f["ok"], f["corr"],
+                 f["channel_errors"], np.asarray(f["payload"]).tobytes())
+                for f in frames]
+
+    assert rows(got["telemetry-frame"]) == rows(want["telemetry-frame"])
+    assert [r[5] for r in rows(got["telemetry-frame"])
+            if r[0] == 0 and r[2]] == [p.tobytes() for p in pay]
+    assert got["telemetry-counters"] == want["telemetry-counters"]
+
+    sig1, pay1 = _signal(1, 9000.0, seed=5)
+    (tmp_path / "one").mkdir()
+    got1, _, telem1, mgr1 = _drive(
+        T, tmp_path / "one", sig1, {2: ["5", "F"] + list("9000") + ["enter"]},
+        "jsdr-tpu-version=1\njsdr-funcube-demods=1\n", mesh=mesh,
+        n_funcube=1, device="cpu")
+    assert mgr1.telem is telem1 and mgr1.telem.tunings == [9000.0, 9000.0]
+    ok = [f for f in got1["telemetry-frame"] if f["ok"]]
+    assert [(f["demod"], f["tuning"]) for f in ok] == [(0, 9000.0)]
+    assert ok[0]["payload"].tobytes() == pay1[0].tobytes()
+    assert list(got1["telemetry-counters"][-1]) == [0]
