@@ -23,8 +23,11 @@ own) at the JAX package's bench deployment, with its known answers, the
 streaming demod Session and the ``demod`` and ``fir`` commands (phase
 13); the interactive shell's pipeline (``app/tui.py``: ``StageManager`` +
 ``PipelineThread`` on the card, headless, with live key presses; phase
-14), the ``compat_scan`` per-sample timing path (phase 15) and the native
-IO library (``io/native.py``, built with g++; phase 16). It checks that
+14), the ``compat_scan`` per-sample timing path (phase 15), the native
+IO library (``io/native.py``, built with g++; phase 16), ``parallel/``
+(phase 17) and the FEC drain's kernels A and B (``fec_decode``; phase
+18: against their plain versions on a test set, timed by batch, launches
+per drain from torch.profiler). It checks that
 each path went through its kernels (and that phase 13 launched none of
 them), then times more steps of each on the host
 clock and profiles a few with torch.profiler for the device-busy share. Every
@@ -254,7 +257,7 @@ def main() -> int:
          "the golden decode did not launch both kernels")
 
     # ---- phase 6: a deployment's size (the counted main-path run) ---------
-    launches = phase_deployment(torch, np, dev, rng, tag, k1, k2)
+    launches, deploy = phase_deployment(torch, np, dev, rng, tag, k1, k2)
 
     # ---- phase 7: kernels 3 and 4 against their plain versions -----------
     k3, k4 = phase_spectrum_kernels(torch, np, dev, tag)
@@ -276,7 +279,7 @@ def main() -> int:
     phase_audio_demod(torch, np, dev, tag)
 
     # ---- phase 14: the ui shell's pipeline on the card, headless ---------
-    phase_ui(torch, np, dev, tag)
+    ui = phase_ui(torch, np, dev, tag)
 
     # ---- phase 15: compat_scan (the per-sample timing scan) -------------
     phase_compat_scan(torch, np, dev, rng, tag)
@@ -285,7 +288,10 @@ def main() -> int:
     phase_native_io(np, tag)
 
     # ---- phase 17: parallel/ — the mesh Session, TP, PP and NCCL ---------
-    phase_parallel(torch, np, dev, rng, tag)
+    ticks = phase_parallel(torch, np, dev, rng, tag)
+
+    # ---- phase 18: the FEC drain's kernels A and B -----------------------
+    ka, kb = phase_fec(torch, np, dev, rng, tag, deploy, ui, ticks)
 
     need("jax" not in sys.modules and "jsdr_tpu" not in sys.modules,
          "jax or the JAX package was imported")
@@ -315,6 +321,14 @@ def main() -> int:
              replaces="jsdr_tpu/ops/pallas_kernels.py:955",
              launches=session["mix_decimate_mf"],
              **{k: v for k, v in k6.items() if k != "chain_ms"}),
+        dict(name="fec_viterbi", route="cuda",
+             source="jsdr_tpu_torch/ops/csrc/fec_viterbi.cu",
+             replaces="jsdr_tpu/fec/viterbi.py:84",
+             launches=launches[2], **ka),
+        dict(name="fec_rs", route="cuda",
+             source="jsdr_tpu_torch/ops/csrc/fec_rs.cu",
+             replaces="jsdr_tpu/fec/rs.py:213",
+             launches=launches[3], **kb),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -618,10 +632,12 @@ def phase_goldens(torch, np, dev, tag):
 def phase_deployment(torch, np, dev, rng, tag, k1, k2):
     """Phase 6: 128 concurrent demodulator instances at 96 kS/s, one
     AO-40 frame each, 5 chained 1 s blocks; every payload must decode
-    bit-exact. Returns the kernels' launch counts in this run."""
+    bit-exact. Returns the launch counts of kernels 1, 2, A and B in this
+    run, and the drained windows and drain times for phase 18."""
     from jsdr_tpu_torch.demod.bpsk import (BpskConfig, bpsk_block_batch,
                                            bpsk_init_batch)
-    from jsdr_tpu_torch.fec.decoder import fec_decode
+    from jsdr_tpu_torch.fec.decoder import fec_check, fec_decode
+    from jsdr_tpu_torch.fec.viterbi import viterbi27_bytes
     from jsdr_tpu_torch.io.sources import synth_bpsk_stream
     from jsdr_tpu_torch.ops.cplx import from_complex
     from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
@@ -652,10 +668,11 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
     torch.cuda.synchronize()                           # warm-up, discarded
 
     st = bpsk_init_batch(cfg, s, dev)
-    step_ms, fec_ms = [], []
+    step_ms, fec_ms, drained = [], [], []
     decoded = [[] for _ in range(s)]
     failed = 0
     mix_decimate.launches = timing_recover_batch.launches = 0
+    viterbi27_bytes.launches = fec_check.launches = 0
     for b in range(n_blocks):
         t0 = time.perf_counter()
         out, st = bpsk_block_batch(blocks[b], cfg, st, tunings)
@@ -668,7 +685,8 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
                < n_hits[:, None])
         stream_of = torch.nonzero(hit)[:, 0].cpu().numpy()
         if len(stream_of):
-            res = fec_decode(out.windows[hit])
+            drained.append(out.windows[hit])
+            res = fec_decode(drained[-1])
             ok = res.ok.cpu().numpy()
             pay = res.payload.cpu().numpy()
             for j, si in enumerate(stream_of):
@@ -677,7 +695,8 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
                 else:
                     failed += 1
         fec_ms.append((time.perf_counter() - t1) * 1e3)
-    launches = (mix_decimate.launches, timing_recover_batch.launches)
+    launches = (mix_decimate.launches, timing_recover_batch.launches,
+                viterbi27_bytes.launches, fec_check.launches)
     bad = [i for i in range(s) if len(decoded[i]) != 1
            or not np.array_equal(decoded[i][0], payloads[i])]
     need(not bad, f"streams {bad[:10]} did not decode their payload "
@@ -685,7 +704,10 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
     counters = st.counters.cpu().numpy()
     need((counters[:, 0] == n_blocks * block).all(), "raw counters wrong")
     need(launches[0] == n_blocks and launches[1] == n_blocks,
-         f"main path launches {launches}, want {n_blocks} of each")
+         f"main path launches {launches}, want {n_blocks} of kernels 1, 2")
+    need(launches[2] == launches[3] == len(drained) > 0,
+         f"FEC launches {launches[2:]}: want kernels A and B once a drain "
+         f"({len(drained)} drains)")
 
     mean = float(np.mean(step_ms))
     kern = k1["ms"] + k2["ms"]
@@ -705,7 +727,7 @@ def phase_deployment(torch, np, dev, rng, tag, k1, k2):
 
     step_times(torch, step, 10, 3, tag,
                f"telemetry step bpsk_block_batch S={s} T={block}")
-    return launches
+    return launches, {"windows": torch.cat(drained), "fec_ms": fec_ms}
 
 
 def spec_inputs(torch, np, dev, gen, s: int, t_len: int, rate: int):
@@ -1869,7 +1891,13 @@ def waits_for_card(torch, fn, args) -> bool:
     return waited
 
 def kernel_wrappers():
-    """The six kernel wrappers of the port (each counts its launches)."""
+    """The kernel wrappers of the port (each counts its launches): the
+    six TPU kernels' and the FEC drain's (kernel A, kernel B, and the RS
+    decode and encoder of kernel B's source on their own)."""
+    from jsdr_tpu_torch.fec.decoder import fec_check
+    from jsdr_tpu_torch.fec.encode import encode_fec40
+    from jsdr_tpu_torch.fec.rs import decode_rs
+    from jsdr_tpu_torch.fec.viterbi import viterbi27_bytes
     from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
     from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
     from jsdr_tpu_torch.ops.psd_waterfall import psd_waterfall
@@ -1878,7 +1906,8 @@ def kernel_wrappers():
     from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
 
     return (mix_decimate, timing_recover_batch, spectrum_front_fused,
-            spectrum_fused, psd_waterfall, mix_decimate_mf)
+            spectrum_fused, psd_waterfall, mix_decimate_mf, viterbi27_bytes,
+            fec_check, decode_rs, encode_fec40)
 
 
 def check_demod_state(torch, got, want, what: str) -> None:
@@ -1896,7 +1925,7 @@ def check_demod_state(torch, got, want, what: str) -> None:
 
 def phase_audio_demod(torch, np, dev, tag):
     """Phase 13: the AM/NFM/WFM audio demodulator (``demod/am_fm.py``),
-    which runs as torch ops and launches none of the six kernels:
+    which runs as torch ops and launches none of the port's kernels:
 
     (a) the JAX package's bench deployment (bench.py:409-412): 64 WFM
     streams x 960,000 samples (10 s at 96 kS/s), 21-tap band-pass at
@@ -1916,7 +1945,7 @@ def phase_audio_demod(torch, np, dev, tag):
     the ``demod`` file path's on the same input;
     (d) ``jsdr-tpu-torch demod`` and ``fir`` on a synthesised fixture on
     the card, each output within 1 count of the ``--device cpu`` run;
-    (e) the six kernel wrappers' launch counts do not move in (a)-(d)."""
+    (e) the kernel wrappers' launch counts do not move in (a)-(d)."""
     from jsdr_tpu_torch.demod.am_fm import AmFmConfig, AmFmState, Mode, \
         demod_block
 
@@ -1989,7 +2018,8 @@ def phase_audio_demod(torch, np, dev, tag):
 
     moved = {fn.__name__: fn.launches for fn in wrappers if fn.launches}
     need(not moved, f"the audio demod path launched kernels: {moved}")
-    print(f"{tag} audio demod: none of the six kernels launched in phase 13")
+    print(f"{tag} audio demod: none of the port's kernels launched in "
+          "phase 13")
 
 
 def demod_known_answers(torch, dev, tag):
@@ -2406,7 +2436,7 @@ def phase_ui(torch, np, dev, tag):
               f"{worst[0]:.2e} dB at or above the floor, {worst[1]:.2e} of "
               f"the RMS amplitude), audio within {max(aud):.2e} of the "
               f"block's largest")
-    return mean
+    return mean, float(ms.max())
 
 
 # (c)'s lengths: golden_96k's first sync hit is in 0.1 s block 45 (drained
@@ -2972,6 +3002,7 @@ def phase_parallel(torch, np, dev, rng, tag):
         o, st_s = bpsk_block_batch(CF(blocks.re[b], blocks.im[b]), cfg, st_s,
                                    tunings, dofft=auto, track_high=auto)
         seq.append(o)
+    ticks = {}
     for n_stages, dp in ((3, 1), (2, 2)):
         run = pipelined_telemetry(make_pp_mesh(n_stages, dp, device=dev),
                                   rate=rate)
@@ -2983,6 +3014,7 @@ def phase_parallel(torch, np, dev, rng, tag):
                          track_high=auto)
         int(out.telem.n_hits.sum())
         tick_ms = (time.perf_counter() - t0) * 1e3 / n_mb
+        ticks[n_stages] = tick_ms
         last, carry = pipeline_flush(run, carry, s, rate, tunings,
                                      dofft=auto, track_high=auto)
         k1, k2 = mix_decimate.launches, timing_recover_batch.launches
@@ -3033,6 +3065,255 @@ def phase_parallel(torch, np, dev, rng, tag):
         dist.destroy_process_group()
     print(f"{tag} parallel: phase 17 took "
           f"{time.perf_counter() - t_phase:.1f} s")
+    return ticks
+
+
+# phase 18: frames a drain, timed; work of the FEC kernels, counted as
+# 32-bit integer operations (adds, compares, selects, shifts, table reads)
+# against PEAK_FLOPS, the card's CUDA-core rate (the guide's table has no
+# int32 rate): an ACS step is 2 adds, a compare and a max a state; a
+# traceback step 6; a syndrome term, Chien or Forney term and LFSR cell
+# step 5; a channel symbol's re-encode and compare 10
+FEC_BATCHES = (1, 37, 128, 512)
+VIT_OPS = 2566 * 64 * 4 + 2560 * 6
+SYND_OPS = 32 * 255 * 5
+UNCLEAN_OPS = 32 * 32 * 20 + 255 * 33 * 5 + 528 * 5 + 32 * 48 * 5
+REENCODE_OPS = 2 * 128 * 32 * 5 + 5200 * 10
+
+
+def fec_work(n: int, unclean: int = 0, n_ok: int = 0):
+    """(ops, bytes) of kernel A over n frames, and of kernel B with
+    ``unclean`` codewords that need Berlekamp-Massey, Chien and Forney
+    and ``n_ok`` frames re-encoded (the rest stop earlier)."""
+    a = (n * VIT_OPS, n * (5200 + 320) + 576 * 4)
+    b = (n * 2 * SYND_OPS + unclean * UNCLEAN_OPS + n_ok * REENCODE_OPS,
+         n * (320 + 5200 + 256 + 1 + 8 + 4) + 929)
+    return a, b
+
+
+def fec_windows(torch, np, rng, deploy):
+    """Phase 18's test set, name -> uint8 [n, 5200] windows: both goldens'
+    clean windows, the same with 25 and 90 flipped soft symbols (and soft
+    noise), windows whose codewords carry exactly 16 and 17 byte errors
+    (a payload's 320-byte sequence from ``ref_numpy.frame_bytes`` with
+    bytes changed, encoded), random, all-0x80 and all-zero windows, and
+    phase 6's drained windows."""
+    from jsdr_tpu_torch.fec import ref_numpy as R
+    from jsdr_tpu_torch.fec.encode import encode_bytes
+
+    clean = np.concatenate([
+        np.load(ROOT / "tests" / "golden" / n)["clean_windows"]
+        for n in ("golden_96k.npz", "golden_192k.npz")])
+    sets = {"golden": clean}
+    for n_flip in (25, 90):
+        w = clean.astype(np.int32)
+        for row in w:
+            pos = rng.choice(row.shape[0], n_flip, replace=False)
+            row[pos] = 0x100 - row[pos]
+        w += rng.integers(-40, 40, w.shape)
+        sets[f"flip{n_flip}"] = np.clip(w, 0, 255).astype(np.uint8)
+    rs = []
+    for c, n_err in ((0, 16), (1, 16), (0, 17), (1, 17)):
+        seq = R.frame_bytes(rng.integers(0, 256, 256, dtype=np.uint8))
+        k = rng.choice(160, n_err, replace=False)
+        seq[2 * k + c] ^= rng.integers(1, 256, n_err).astype(np.uint8)
+        sym = encode_bytes(torch.from_numpy(seq)[None])[0].numpy()
+        rs.append(np.where(sym > 0, 0xC0, 0x40).astype(np.uint8))
+    sets["rs16_17"] = np.stack(rs)
+    sets["random"] = rng.integers(0, 256, (8, 5200)).astype(np.uint8)
+    sets["flat"] = np.stack([np.full(5200, 0x80, np.uint8)] * 2
+                            + [np.zeros(5200, np.uint8)] * 2)
+    sets["deployment"] = deploy["windows"].cpu().numpy()
+    return sets
+
+
+def phase_fec(torch, np, dev, rng, tag, deploy, ui=None, ticks=None):
+    """Phase 18: the FEC drain's kernels A (``viterbi27_bytes``,
+    csrc/fec_viterbi.cu) and B (``fec_check``, csrc/fec_rs.cu). (a) On
+    every window of the test set (``fec_windows``) kernel A equals the
+    plain Viterbi (``torch.equal``, from frames and from symbols), kernel
+    B the plain RS + re-encode on all four outputs, ``decode_rs`` and
+    ``encode_fec40`` their plain versions, and ``fec_decode`` on the card
+    ``fec_decode`` on the CPU, also on a strided view. (b) Device times
+    behind a sleep kernel at FEC_BATCHES frames (noisy copies of phase
+    6's windows, three inputs cycled), kernel B on undecodable windows
+    too, a drain's wall with its readback, the plain drain at 128 and 512
+    frames (one call each), and the chain floor (kernel A at one frame).
+    (c), first of all: kernel launches a drain from torch.profiler, at
+    most 8. (d) The user-facing numbers of phases 6, 14 (``ui``) and 17
+    (c) (``ticks``) again, where given. Returns the kernels line's entries
+    of A and B (at 128 frames)."""
+    from jsdr_tpu_torch.fec import decoder as TD
+    from jsdr_tpu_torch.fec import encode as TE
+    from jsdr_tpu_torch.fec import rs as TRS
+    from jsdr_tpu_torch.fec import viterbi as TV
+
+    def plain_vit(raw):
+        return TV.bits_to_bytes(TV.viterbi27_bits_ref(TV.deinterleave(raw)))
+
+    err = [0, 0]                      # largest |kernel - plain|: A, B
+
+    def same(got, want, what, k=1):
+        for g, w, f in zip(got, want, ("payload", "ok", "rs_errors", "rc")):
+            g, w = g.cpu().long(), w.cpu().long()
+            err[k] = max(err[k], int((g - w).abs().max()) if g.numel() else 0)
+            need(torch.equal(g, w), f"{what}: {f} differs")
+
+    t_phase = time.perf_counter()
+    # ---- (c) launches a drain, first: profiled over 10 drains of phase
+    # 6's windows. The count is the host's calls that put work on the card
+    # (kernel launches, copies, fills); the device's kernel rows are
+    # printed beside it: the profiler loses the last device records of a
+    # trace here (17 of 20 kernels over 10 drains in one run, none of 2 in
+    # a trace of one drain), so they are a lower bound
+    r0 = deploy["windows"].contiguous()
+    TD.fec_decode(r0)
+    torch.cuda.synchronize()
+    with profiler(torch) as prof:
+        for _ in range(10):
+            TD.fec_decode(r0)
+        torch.cuda.synchronize()
+    kern = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name.startswith("cu")
+             and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))]
+    print(f"{tag} fec (c): {len(calls) / 10:g} launches a drain of "
+          f"{len(r0)} frames (torch.profiler over 10 drains, the host's "
+          f"calls: {', '.join(sorted(set(calls)))}); device rows "
+          f"{len(kern)}: {', '.join(sorted({k[:40] for k in kern}))}")
+    need(len(calls) % 10 == 0 and 0 < len(calls) // 10 <= 8
+         and len(kern) <= len(calls),
+         f"fec (c): {len(calls)} launch calls and {len(kern)} device rows "
+         "in 10 drains; want 1 to 8 calls a drain")
+
+    # ---- (a) the test set -------------------------------------------------
+    sets = fec_windows(torch, np, rng, deploy)
+    n_win = 0
+    for name, w in sets.items():
+        raw = torch.from_numpy(w).to(dev)
+        sym = TV.deinterleave(raw).contiguous()
+        a = TV.viterbi27_bytes(raw)
+        bits = TV.viterbi27_bits_ref(sym)
+        same([a, TV.viterbi27_bytes(sym)], [TV.bits_to_bytes(bits)] * 2,
+             f"fec (a) {name}: kernel A (from frames, from symbols) against "
+             "the plain Viterbi", 0)
+        need(torch.equal(TV.viterbi27_bits(sym), bits),
+             f"fec (a) {name}: viterbi27_bits differs")
+        b = TD.fec_check(a, raw)
+        same(b, TD._fec_check_ref(a, raw), f"fec (a) {name}: kernel B")
+        words = TD.descramble_demux(a).reshape(-1, 255)
+        same(TRS.decode_rs(words), TRS.decode_rs_codeword(words),
+             f"fec (a) {name}: decode_rs")
+        need(torch.equal(TE.encode_fec40(b.payload),
+                         TE.encode_frame(b.payload)),
+             f"fec (a) {name}: encode_fec40 differs")
+        card = TD.fec_decode(raw)
+        same(card, TD.fec_decode(raw.cpu()),
+             f"fec (a) {name}: fec_decode card against cpu")
+        wide = torch.cat([raw, raw[:, :7]], dim=1)[:, :5200]
+        same(TD.fec_decode(wide), card, f"fec (a) {name}: strided input")
+        if name == "golden":
+            need(bool(card.ok.all()) and not card.rc.any(),
+                 "fec (a): golden windows not clean")
+        if name == "rs16_17":
+            need(card.rs_errors.tolist() == [[16, 0], [0, 16], [-1, 0],
+                                             [0, -1]],
+                 f"fec (a) rs16_17: rs_errors {card.rs_errors.tolist()}")
+        n_win += len(w)
+    torch.cuda.synchronize()
+    print(f"{tag} fec (a): {n_win} windows in {len(sets)} sets "
+          f"({', '.join(f'{k} {len(v)}' for k, v in sets.items())}): kernel "
+          "A equal to the plain Viterbi (from frames and from symbols), "
+          "kernel B to the plain RS + re-encode on all four outputs, "
+          "decode_rs and encode_fec40 to their plain versions, fec_decode "
+          "on the card to fec_decode on the cpu (and on a strided view), "
+          "all bit for bit; rs_errors [16, 0], [0, 16], [-1, 0], [0, -1] on "
+          "the 16/17-error windows")
+
+    # ---- (b) times --------------------------------------------------------
+    pool = sets["deployment"].astype(np.int32)
+    ka_ms, kb_ms, drain_ms, wall_ms, inputs = {}, {}, {}, {}, {}
+    for n in FEC_BATCHES:
+        raws = []
+        for _ in range(3):
+            w = pool[rng.integers(0, len(pool), n)]
+            w = w + rng.integers(-40, 40, w.shape)
+            raws.append(torch.from_numpy(np.clip(w, 0, 255).astype(
+                np.uint8)).to(dev))
+        vits = [TV.viterbi27_bytes(r) for r in raws]
+        ka_ms[n] = device_ms(torch, TV.viterbi27_bytes,
+                             [(r,) for r in raws], 20)
+        kb_ms[n] = device_ms(torch, TD.fec_check, list(zip(vits, raws)), 20)
+        drain_ms[n] = device_ms(torch, TD.fec_decode, [(r,) for r in raws],
+                                20)
+        walls = []
+        for r in raws * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = TD.fec_decode(r)
+            res.ok.cpu(), res.rc.cpu(), res.payload.cpu()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms[n] = float(np.mean(walls))
+        inputs[n] = (raws[0], vits[0])
+    bad = torch.from_numpy(rng.integers(0, 256, (128, 5200)).astype(
+        np.uint8)).to(dev)
+    bad_vit = TV.viterbi27_bytes(bad)
+    kb_bad = device_ms(torch, TD.fec_check, [(bad_vit, bad)], 20)
+    plain = {}
+    r128, v128 = inputs[128]
+    for what, fn, args in (("viterbi", plain_vit, (r128,)),
+                           ("check", TD._fec_check_ref, (v128, r128)),
+                           ("drain512", lambda r: TD._fec_check_ref(
+                               plain_vit(r), r), (inputs[512][0],))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        plain[what] = (time.perf_counter() - t0) * 1e3
+    steps = 2566 + 2560
+    floor_ns = ka_ms[1] * 1e6 / steps
+    res128 = TD.fec_check(v128, r128)
+    unclean = int((res128.rs_errors != 0).sum())
+    (a_ops, a_bytes), (b_ops, b_bytes) = fec_work(
+        128, unclean, int(res128.ok.sum()))
+    a_bound, a_by = bound(a_ops, a_bytes)
+    b_bound, b_by = bound(b_ops, b_bytes)
+    for n in FEC_BATCHES:
+        print(f"{tag} fec (b) B={n}: kernel A {ka_ms[n]:.4f} ms, kernel B "
+              f"{kb_ms[n]:.4f} ms, fec_decode {drain_ms[n]:.4f} ms (device, "
+              f"behind a sleep kernel, 20 calls over 3 inputs); drain wall "
+              f"with its readback (ok, rc, payload) {wall_ms[n]:.3f} ms")
+    print(f"{tag} fec (b): kernel B on 128 undecodable (random) windows "
+          f"{kb_bad:.4f} ms (Berlekamp-Massey, Chien and Forney on every "
+          f"codeword); plain versions at 128 frames: Viterbi "
+          f"{plain['viterbi']:.1f} ms, RS + re-encode {plain['check']:.1f} "
+          f"ms, so the plain drain {plain['viterbi'] + plain['check']:.1f} "
+          f"ms; the plain drain at 512 frames {plain['drain512']:.1f} ms "
+          f"(host clock, one call each)")
+    print(f"{tag} fec (b): chain floor: kernel A at one frame "
+          f"{ka_ms[1]:.4f} ms for {steps} dependent steps (2566 ACS + 2560 "
+          f"traceback), {floor_ns:.2f} ns a step; bounds at 128 frames "
+          f"(ops at {PEAK_FLOPS / 1e12:.0f} T/s, bytes at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s): A {a_bound:.5f} ms by {a_by}, B "
+          f"{b_bound:.5f} ms by {b_by} ({unclean} of 256 codewords unclean)")
+
+    # ---- (d) the user-facing numbers, again -------------------------------
+    if ui is not None and ticks is not None:
+        print(f"{tag} fec (d): phase 6 FEC drain "
+              f"{', '.join(f'{v:.1f}' for v in deploy['fec_ms'])} ms per "
+              f"block; phase 14 ui block mean {ui[0]:.3f} ms, worst "
+              f"{ui[1]:.3f} ms; phase 17 (c) pipeline tick pp=3 "
+              f"{ticks[3]:.3f} ms, pp=2 {ticks[2]:.3f} ms")
+    print(f"{tag} fec: phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    ka = dict(max_abs_err=float(err[0]), ms=ka_ms[128],
+              plain_ms=plain["viterbi"], bound_ms=a_bound, bound_by=a_by,
+              library_ms=None)
+    kb = dict(max_abs_err=float(err[1]), ms=kb_ms[128],
+              plain_ms=plain["check"],
+              bound_ms=b_bound, bound_by=b_by, library_ms=None)
+    return ka, kb
 
 
 if __name__ == "__main__":

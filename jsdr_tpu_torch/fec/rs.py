@@ -1,11 +1,17 @@
 """Batched decoder for the AO-40 shortened RS(255,223) code — the port of
 :mod:`jsdr_tpu.fec.rs` (FECDecoder.java:325-519).
 
-Syndromes, Berlekamp-Massey (32 masked steps), the Chien sweep over all
-255 field points and Forney's error values, each vectorised over the
-batch of codewords. GF(256) elements are int64 tensors; A0 (=255) marks
-log(0). The log/antilog tables are indexed directly (the reference uses
-GF(2) bit-matmuls and nibble one-hot lookups to avoid TPU gathers).
+The plain version :func:`decode_rs_codeword`: syndromes,
+Berlekamp-Massey (32 masked steps), the Chien sweep over all 255 field
+points and Forney's error values, each vectorised over the batch of
+codewords. GF(256) elements are int64 tensors; A0 (=255) marks log(0).
+The log/antilog tables are indexed directly (the reference uses GF(2)
+bit-matmuls and nibble one-hot lookups to avoid TPU gathers).
+:func:`decode_rs` takes any leading shape: CPU tensors run the plain
+version, CUDA tensors launch the RS kernel of ``ops/csrc/fec_rs.cu`` (one
+warp a codeword; the frame kernel B of the drain runs the same device
+code). :func:`_decode_rs_lanes` is that warp's walk in plain PyTorch;
+only the tests call it.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import _build
+from . import _device
 from .tables import A0, ALPHA_TO, FCR, INDEX_OF, IPRIM, NN, NROOTS, PRIM
 
 # s_i = XOR_j gfmul(data[j], alpha^SYND_POW[i, j])  (Horner form, :336-347)
@@ -146,4 +154,151 @@ def decode_rs_codeword(data: torch.Tensor):
     keep = (clean | fail)[:, None]
     corrected = torch.where(keep, data, (data.long() ^ err).to(torch.uint8))
     n_err = torch.where(clean, 0, torch.where(fail, -1, count))
+    return corrected, n_err.to(torch.int32)
+
+
+def decode_rs(data: torch.Tensor):
+    """Batched RS decode: [..., 255] uint8 -> (corrected [..., 255] uint8,
+    n_errors [...] int32), the counterpart of ``jsdr_tpu.fec.rs.decode_rs``.
+
+    CPU tensors run :func:`decode_rs_codeword`; CUDA tensors launch the
+    RS kernel (and count the launch in ``decode_rs.launches``)."""
+    if data.dim() < 1 or data.shape[-1] != NN:
+        raise ValueError(f"decode_rs: want [..., {NN}] codewords, got "
+                         f"{tuple(data.shape)}")
+    lead = data.shape[:-1]
+    flat = data.reshape(-1, NN).contiguous()
+    dev = flat.device
+    _build.check_tensor("decode_rs", "data", flat, tuple(flat.shape),
+                        torch.uint8, dev)
+    n = flat.shape[0]
+    if dev.type == "cpu" and n:
+        corrected, n_err = decode_rs_codeword(flat)
+    elif dev.type in ("cpu", "cuda"):
+        corrected = torch.empty_like(flat)
+        n_err = torch.empty(n, dtype=torch.int32, device=dev)
+        if n:
+            tab = _device.device_table("rs", dev)
+            lib = _build.kernels()
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                code = lib.jsdr_rs_decode(flat.data_ptr(), tab.data_ptr(),
+                                          corrected.data_ptr(),
+                                          n_err.data_ptr(), n, stream)
+            _build.check(code, "decode_rs")
+            decode_rs.launches += 1
+    else:
+        raise ValueError(f"decode_rs: unsupported device {dev}")
+    return corrected.reshape(*lead, NN), n_err.reshape(lead)
+
+
+decode_rs.launches = 0
+
+
+def _popc(mask: torch.Tensor) -> torch.Tensor:
+    """Bits set in each 32-bit ballot word (int64)."""
+    return ((mask[..., None] >> torch.arange(32)) & 1).sum(dim=-1)
+
+
+def _decode_rs_lanes(data: torch.Tensor):
+    """The RS kernel's warp walk in plain PyTorch (CPU): [B, 255] uint8 ->
+    (corrected [B, 255] uint8, n_errors [B] int32), as the kernel computes
+    it. Lane i computes syndrome s_i with its power stepping down by
+    (FCR + i) * PRIM; a clean word stops there. Berlekamp-Massey keeps
+    lambda_i and b_i in lane i and lambda's coefficient 32 in every lane
+    (b's never reaches x * b), the discrepancy an XOR butterfly over the
+    lanes, x * b(x) a shift up. The Chien sweep takes the 255 points in 8
+    rounds of 32 lanes and ranks the roots of a round by ballot + popc
+    into 32 slots; lane i computes omega_i, lane k Forney's value at slot
+    k. Nothing on the main path
+    calls it."""
+    gf = _GF(data.device)
+    alpha, index = gf.alpha, gf.index
+    n = data.shape[0]
+    lane = torch.arange(32)
+    d = data.long()
+    c = ((FCR + lane) * PRIM) % NN
+    pw = (c * (NN - 1)) % NN
+    s = torch.zeros((n, 32), dtype=torch.int64)
+    for j in range(NN):
+        dj = d[:, j:j + 1]
+        s ^= torch.where(dj != 0, alpha[(index[dj] + pw) % NN], 0)
+        pw = (pw - c) % NN
+    clean = ~(s != 0).any(dim=1)
+    s_log = index[s]
+
+    lam = torch.zeros((n, 32), dtype=torch.int64)
+    lam[:, 0] = 1
+    b = torch.full((n, 32), A0, dtype=torch.int64)
+    b[:, 0] = 0
+    lam32 = torch.zeros((n, 1), dtype=torch.int64)
+    el = torch.zeros((n, 1), dtype=torch.int64)
+    a0_col = torch.full((n, 1), A0, dtype=torch.int64)
+    for r in range(1, NROOTS + 1):
+        sl = s_log[:, (r - 1 - lane) & 31]
+        term = torch.where(lane < r, gf.mul_log(index[lam], sl), 0)
+        for o in (16, 8, 4, 2, 1):
+            term = term ^ term[:, lane ^ o]
+        dlog = index[term[:, :1]]
+        xb = torch.cat([a0_col, b[:, :31]], dim=1)
+        xb32 = b[:, 31:]
+        no_update = dlog == A0
+        keep = no_update | (2 * el > r - 1)
+        bs = torch.where(lam == 0, A0, (index[lam] - dlog + NN) % NN)
+        t = lam ^ gf.mul_log(dlog.expand_as(xb), xb)
+        t32 = lam32 ^ gf.mul_log(dlog, xb32)
+        b = torch.where(keep, xb, bs)
+        el = torch.where(keep, el, r - el)
+        lam = torch.where(no_update, lam, t)
+        lam32 = torch.where(no_update, lam32, t32)
+    lamlog = index[torch.cat([lam, lam32], dim=1)]               # [B, 33]
+    deg = torch.where(lamlog[:, :32] != A0, lane, 0).amax(dim=1)
+    deg = torch.where(lamlog[:, 32] != A0, NROOTS, deg)
+
+    count = torch.zeros(n, dtype=torch.int64)
+    root = torch.zeros((n, NROOTS + 1), dtype=torch.int64)  # + a spare
+    below = (1 << lane) - 1
+    for q in range(8):
+        i = 32 * q + lane + 1
+        v = torch.zeros((n, 32), dtype=torch.int64)
+        p = torch.zeros(32, dtype=torch.int64)
+        for j in range(NROOTS + 1):
+            v ^= gf.mul_log(lamlog[:, j:j + 1], p.expand(n, 32))
+            p = (p + i) % NN
+        is_root = (i <= NN) & (v == 0)
+        mask = (is_root.long() << lane).sum(dim=1, keepdim=True)  # ballot
+        rank = count[:, None] + _popc(mask & below)
+        slot = torch.where(is_root & (rank < NROOTS), rank, NROOTS)
+        root.scatter_(1, slot, torch.where(slot < NROOTS, i, 0))
+        count = count + _popc(mask[:, 0])
+    root = root[:, :NROOTS]
+    fail = count != deg
+
+    om = torch.zeros((n, 32), dtype=torch.int64)
+    for j in range(NROOTS):
+        term = gf.mul_log(s_log[:, (lane - j).clamp(min=0)],
+                          lamlog[:, j:j + 1].expand(n, 32))
+        om ^= torch.where(j <= lane, term, 0)
+    omlog = index[om]
+
+    valid = lane < count[:, None]
+    num1 = torch.zeros((n, 32), dtype=torch.int64)
+    for k in range(NROOTS):
+        num1 ^= gf.mul_log(omlog[:, k:k + 1].expand(n, 32), (k * root) % NN)
+    num2 = alpha[(root * (FCR - 1) + NN) % NN]
+    den = torch.zeros((n, 32), dtype=torch.int64)
+    for m in range(NROOTS // 2):
+        den ^= gf.mul_log(lamlog[:, 2 * m + 1:2 * m + 2].expand(n, 32),
+                          (2 * m * root) % NN)
+    den_zero = (valid & (den == 0)).any(dim=1)
+    good = valid & (num1 != 0) & (den != 0)
+    mag = torch.where(
+        good, alpha[(index[num1] + index[num2] + NN - index[den]) % NN], 0)
+    loc = (IPRIM - 1 + (root - 1) * IPRIM) % NN
+    failed = fail | den_zero
+    err = torch.zeros((n, NN + 1), dtype=torch.int64)
+    err.scatter_(1, torch.where(valid, loc, NN), mag)
+    keep = (clean | failed)[:, None]
+    corrected = torch.where(keep, data, (d ^ err[:, :NN]).to(torch.uint8))
+    n_err = torch.where(clean, 0, torch.where(failed, -1, count))
     return corrected, n_err.to(torch.int32)

@@ -54,6 +54,14 @@ _SIGNATURES = {
     # mtail_r, mtail_i, yr, yi, ntail_r, ntail_i, nmtail_r, nmtail_i,
     # n_streams, t_len, m, gain, stream
     "jsdr_mix_dec_mf": [_P] * 18 + [_I, _I, _I, _F, _P],
+    # in, tab, out, n_frames, deint, stream
+    "jsdr_fec_viterbi": [_P] * 3 + [_I, _I, _P],
+    # vit, raw, tab, payload, ok, rs_errors, rc, n_frames, stream
+    "jsdr_fec_frame": [_P] * 7 + [_I, _P],
+    # data, tab, corrected, n_err, n_words, stream
+    "jsdr_rs_decode": [_P] * 4 + [_I, _P],
+    # payload, tab, frame, n_frames, stream
+    "jsdr_fec_encode": [_P] * 3 + [_I, _P],
 }
 
 

@@ -1,6 +1,8 @@
 """The port's AO-40 FEC decode against the JAX decoder and the numpy
-oracle (``jsdr_tpu.fec.ref_numpy``). Everything here is integer
-arithmetic: payload, ok, rs_errors and rc must be bit-exact."""
+oracle (``jsdr_tpu.fec.ref_numpy``), and the batched entry points
+(``viterbi27``, ``decode_rs``, ``encode_fec40``, ``encode_frame_affine``)
+against their JAX namesakes over leading dimensions. Everything here is
+integer arithmetic: payload, ok, rs_errors and rc must be bit-exact."""
 
 from pathlib import Path
 
@@ -11,10 +13,12 @@ import torch
 
 from jsdr_tpu.fec import ref_numpy as R
 from jsdr_tpu.fec import decoder as JD
+from jsdr_tpu.fec import encode as JE
 from jsdr_tpu.fec import rs as JRS
 from jsdr_tpu.fec import viterbi as JV
 from jsdr_tpu.fec.tables import METTAB, NBITS, NN, RSPAD
 from jsdr_tpu_torch.fec import decoder as TD
+from jsdr_tpu_torch.fec import encode as TE
 from jsdr_tpu_torch.fec import rs as TRS
 from jsdr_tpu_torch.fec import viterbi as TV
 from jsdr_tpu_torch.fec.encode import encode_frame
@@ -128,3 +132,51 @@ def test_encode_matches_numpy_oracle():
     got = encode_frame(torch.from_numpy(payloads)).numpy()
     for p, g in zip(payloads, got):
         np.testing.assert_array_equal(g, R.encode_fec40(p))
+
+
+def _entry_inputs(name):
+    """Inputs with leading dims for each batched entry point: [2, 3] of
+    deinterleaved windows, [2, 2] codewords (clean, 16 errors, 17 errors,
+    all zero), [2, 3] payloads with the all-zero and all-0xFF edges."""
+    rng = np.random.default_rng(17)
+    if name == "viterbi27":
+        raw = _frames()[:6]
+        return np.stack([R.deinterleave(w) for w in raw]).reshape(2, 3, -1)
+    if name == "decode_rs":
+        seq = R.frame_bytes(rng.integers(0, 256, 256, dtype=np.uint8))
+        word = R.descramble_demux(seq ^ R.SCRAMBLER[:320].astype(np.uint8))[1]
+        out = []
+        for n_err in (0, 16, 17):
+            w = word.copy()
+            pos = rng.choice(np.arange(RSPAD, NN), n_err, replace=False)
+            w[pos] ^= rng.integers(1, 256, n_err).astype(np.uint8)
+            out.append(w)
+        out.append(np.zeros(NN, np.uint8))
+        return np.stack(out).reshape(2, 2, NN)
+    return np.concatenate([
+        rng.integers(0, 256, (4, 256), dtype=np.uint8),
+        np.zeros((1, 256), np.uint8), np.full((1, 256), 255, np.uint8),
+    ]).reshape(2, 3, 256)
+
+
+@pytest.mark.parametrize("name", ["viterbi27", "decode_rs", "encode_fec40",
+                                  "encode_frame_affine"])
+def test_entry_point_matches_jax(name):
+    """Each batched entry point bit-exact against its JAX namesake."""
+    x = _entry_inputs(name)
+    port = {"viterbi27": TV.viterbi27, "decode_rs": TRS.decode_rs,
+            "encode_fec40": TE.encode_fec40,
+            "encode_frame_affine": TE.encode_frame_affine}[name]
+    ref = {"viterbi27": JV.viterbi27, "decode_rs": JRS.decode_rs,
+           "encode_fec40": JE.encode_fec40,
+           "encode_frame_affine": JE.encode_frame_affine}[name]
+    got = port(torch.from_numpy(x))
+    want = ref(jnp.asarray(x))
+    if name == "decode_rs":
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert got[1].tolist() == [[0, 16], [-1, 0]]
+    else:
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
