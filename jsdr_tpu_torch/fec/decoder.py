@@ -76,12 +76,13 @@ def _fec_check_ref(vitdec: torch.Tensor, raw: torch.Tensor) -> FecResult:
 
 def _fec_check_lanes(vitdec: torch.Tensor, raw: torch.Tensor) -> FecResult:
     """Kernel B's walk in plain PyTorch (CPU): each codeword through the
-    warp walk :func:`rs._decode_rs_lanes`, the re-encode through the
-    lane-wise LFSR :func:`_rs_parity_lanes` and the per-position symbols
-    of :func:`_channel_symbols`. Nothing on the main path calls it."""
+    4-warp walk :func:`rs._decode_rs_lanes` (syndromes from RSPAD on: the
+    pad is zero), the re-encode through the parity's table product
+    :func:`_rs_parity_lanes` and the per-position symbols of
+    :func:`_channel_symbols`. Nothing on the main path calls it."""
     n_batch = raw.shape[0]
     blocks = descramble_demux(vitdec).reshape(n_batch * RSBLOCKS, NN)
-    corrected, nerr = rs._decode_rs_lanes(blocks)
+    corrected, nerr = rs._decode_rs_lanes(blocks, first=RSPAD)
 
     def reencode(payload):
         parity = _rs_parity_lanes(payload).transpose(1, 2).reshape(

@@ -9,8 +9,10 @@ after bit t is the window of the last 7 bits); interleaving and the sync
 column are index writes. :func:`encode_fec40` takes any leading shape:
 CPU tensors run the plain version, CUDA tensors launch the encode kernel
 of ``ops/csrc/fec_rs.cu`` (the re-encode of the drain's kernel B runs the
-same device code). :func:`_rs_parity_lanes` and :func:`_channel_symbols`
-are that code's walk in plain PyTorch; only the tests call them.
+same device code, the parity as a table product over
+``_device.parity_map``). :func:`_rs_parity_lanes` and
+:func:`_channel_symbols` are that code's walk in plain PyTorch; only the
+tests call them.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from ..ops import _build
 from . import _device
 from ._device import GPOLY as _GPOLY
+from .rs import xor_reduce
 from .tables import (
     A0, ALPHA_TO, BLOCKSIZE, COLUMNS, CPOLYA, CPOLYB, INDEX_OF, NBITS, NROOTS,
     PARTAB, ROWS, SCRAMBLER, SYMPBLOCK, SYNC_BITS,
@@ -139,24 +142,24 @@ def encode_frame_affine(payload: torch.Tensor) -> torch.Tensor:
 
 
 def _rs_parity_lanes(payload: torch.Tensor) -> torch.Tensor:
-    """The encode kernel's RS parity walk in plain PyTorch (CPU): [B, 256]
-    -> [B, 2, 32]. Warp c runs codeword c's LFSR with lane k holding
-    reg[k]: the feedback from lane 0, lane k's tap alpha^(fb + g[k]),
-    then (reg ^ t) shifted down a lane with t[0] into lane 31."""
-    alpha = torch.as_tensor(ALPHA_TO, dtype=torch.int64)
-    index = torch.as_tensor(INDEX_OF, dtype=torch.int64)
-    glog = torch.as_tensor(_GPOLY)
-    lane = torch.arange(NROOTS)
-    data = payload.long().reshape(-1, BLOCKSIZE // 2, 2)      # [B, 128, 2]
-    reg = torch.zeros((data.shape[0], 2, NROOTS), dtype=torch.int64)
-    for k in range(BLOCKSIZE // 2):
-        fb = index[data[:, k] ^ reg[..., 0]][..., None]      # [B, 2, 1]
-        t = torch.where(fb == A0, 0, alpha[(fb + glog) % 255])
-        t0 = torch.where(fb == A0, 0, alpha[fb % 255])
-        x = reg ^ t
-        nx = torch.cat([x[..., 1:], x[..., 31:]], dim=-1)    # shuffle down
-        reg = torch.where(lane == NROOTS - 1, t0, nx)
-    return reg.to(torch.uint8)
+    """The encode kernel's RS parity in plain PyTorch (CPU): [B, 256] ->
+    [B, 2, 32], as the table product the kernel takes. Thread (q, c, j)
+    XORs data[k] * R[k][j] over k in [32q, 32q + 32) (data byte k of
+    codeword c is payload[2k + c]; R from :func:`_device.parity_map`,
+    stored as logs; the product one lookup in the doubled ALPHA_TO, zero
+    where either log is A0), and the four quarters are XORed."""
+    tab = torch.as_tensor(_device.rs_table()).long()
+    off = _device.RS_OFFSETS
+    alpha2 = tab[off["alpha"]:off["index"]]
+    index = tab[off["index"]:off["parity"]]
+    rlog = tab[off["parity"]:off["scrambler"]].reshape(BLOCKSIZE // 2,
+                                                       NROOTS)
+    n = payload.shape[0]
+    dlog = index[payload.long().reshape(n, BLOCKSIZE // 2, 2)]  # [B, k, c]
+    dl = dlog.transpose(1, 2)[..., None]                     # [B, c, k, 1]
+    term = torch.where((dl == A0) | (rlog == A0), 0, alpha2[dl + rlog])
+    quarters = xor_reduce(term.reshape(n, 2, 4, 32, NROOTS), dim=3)
+    return xor_reduce(quarters, dim=2).to(torch.uint8)       # [B, 2, 32]
 
 
 def _channel_symbols(scrambled: torch.Tensor) -> torch.Tensor:

@@ -8,10 +8,10 @@ codewords. GF(256) elements are int64 tensors; A0 (=255) marks log(0).
 The log/antilog tables are indexed directly (the reference uses GF(2)
 bit-matmuls and nibble one-hot lookups to avoid TPU gathers).
 :func:`decode_rs` takes any leading shape: CPU tensors run the plain
-version, CUDA tensors launch the RS kernel of ``ops/csrc/fec_rs.cu`` (one
-warp a codeword; the frame kernel B of the drain runs the same device
-code). :func:`_decode_rs_lanes` is that warp's walk in plain PyTorch;
-only the tests call it.
+version, CUDA tensors launch the RS kernel of ``ops/csrc/fec_rs.cu`` (4
+warps a codeword; the frame kernel B of the drain runs the same device
+code). :func:`_decode_rs_lanes` is that walk in plain PyTorch; only the
+tests call it.
 """
 
 from __future__ import annotations
@@ -200,30 +200,46 @@ def _popc(mask: torch.Tensor) -> torch.Tensor:
     return ((mask[..., None] >> torch.arange(32)) & 1).sum(dim=-1)
 
 
-def _decode_rs_lanes(data: torch.Tensor):
-    """The RS kernel's warp walk in plain PyTorch (CPU): [B, 255] uint8 ->
+def _decode_rs_lanes(data: torch.Tensor, first: int = 0):
+    """The RS kernel's walk in plain PyTorch (CPU): [B, 255] uint8 ->
     (corrected [B, 255] uint8, n_errors [B] int32), as the kernel computes
-    it. Lane i computes syndrome s_i with its power stepping down by
-    (FCR + i) * PRIM; a clean word stops there. Berlekamp-Massey keeps
-    lambda_i and b_i in lane i and lambda's coefficient 32 in every lane
-    (b's never reaches x * b), the discrepancy an XOR butterfly over the
-    lanes, x * b(x) a shift up. The Chien sweep takes the 255 points in 8
-    rounds of 32 lanes and ranks the roots of a round by ballot + popc
-    into 32 slots; lane i computes omega_i, lane k Forney's value at slot
-    k. Nothing on the main path
-    calls it."""
+    it with 4 warps a codeword. Lane i of warp q computes syndrome s_i over
+    its quarter of the bytes [first, 255) (the bytes before ``first`` must
+    be zero; the frame kernel passes RSPAD), its power stepping down by
+    (FCR + i) * PRIM, and the quarters are XORed; a clean word stops
+    there. Berlekamp-Massey keeps lambda_i and b_i in lane i and lambda's
+    coefficient 32 in every lane (b's never reaches x * b), the
+    discrepancy an XOR butterfly over the lanes, x * b(x) a shift up. The
+    Chien sweep takes the 255 points in 8 rounds of 32 lanes (warp q:
+    rounds q and q + 4), each round's roots a ballot word; a root's slot
+    is its rank over the rounds before it and the lanes below it. Lane i
+    computes omega_i, lane k Forney's value at slot k. GF products are one
+    lookup in the doubled ALPHA_TO (``_device.ALPHA2``), zero where either
+    log is A0. Nothing on the main path calls it."""
+    from ._device import ALPHA2
+
     gf = _GF(data.device)
-    alpha, index = gf.alpha, gf.index
+    index = gf.index
+    alpha2 = torch.as_tensor(ALPHA2).long()
+
+    def mul_log(la, lb):
+        return torch.where((la == A0) | (lb == A0), 0, alpha2[la + lb])
+
     n = data.shape[0]
     lane = torch.arange(32)
     d = data.long()
     c = ((FCR + lane) * PRIM) % NN
-    pw = (c * (NN - 1)) % NN
+    quarter = (NN - first + 3) // 4
     s = torch.zeros((n, 32), dtype=torch.int64)
-    for j in range(NN):
-        dj = d[:, j:j + 1]
-        s ^= torch.where(dj != 0, alpha[(index[dj] + pw) % NN], 0)
-        pw = (pw - c) % NN
+    for q in range(4):
+        lo, hi = first + q * quarter, min(first + (q + 1) * quarter, NN)
+        part = torch.zeros((n, 32), dtype=torch.int64)
+        pw = (c * (NN - 1 - lo)) % NN
+        for j in range(lo, hi):
+            dj = d[:, j:j + 1]
+            part ^= torch.where(dj != 0, alpha2[index[dj] + pw], 0)
+            pw = (pw - c) % NN
+        s ^= part
     clean = ~(s != 0).any(dim=1)
     s_log = index[s]
 
@@ -236,7 +252,7 @@ def _decode_rs_lanes(data: torch.Tensor):
     a0_col = torch.full((n, 1), A0, dtype=torch.int64)
     for r in range(1, NROOTS + 1):
         sl = s_log[:, (r - 1 - lane) & 31]
-        term = torch.where(lane < r, gf.mul_log(index[lam], sl), 0)
+        term = torch.where(lane < r, mul_log(index[lam], sl), 0)
         for o in (16, 8, 4, 2, 1):
             term = term ^ term[:, lane ^ o]
         dlog = index[term[:, :1]]
@@ -245,8 +261,8 @@ def _decode_rs_lanes(data: torch.Tensor):
         no_update = dlog == A0
         keep = no_update | (2 * el > r - 1)
         bs = torch.where(lam == 0, A0, (index[lam] - dlog + NN) % NN)
-        t = lam ^ gf.mul_log(dlog.expand_as(xb), xb)
-        t32 = lam32 ^ gf.mul_log(dlog, xb32)
+        t = lam ^ mul_log(dlog.expand_as(xb), xb)
+        t32 = lam32 ^ mul_log(dlog, xb32)
         b = torch.where(keep, xb, bs)
         el = torch.where(keep, el, r - el)
         lam = torch.where(no_update, lam, t)
@@ -255,45 +271,50 @@ def _decode_rs_lanes(data: torch.Tensor):
     deg = torch.where(lamlog[:, :32] != A0, lane, 0).amax(dim=1)
     deg = torch.where(lamlog[:, 32] != A0, NROOTS, deg)
 
-    count = torch.zeros(n, dtype=torch.int64)
-    root = torch.zeros((n, NROOTS + 1), dtype=torch.int64)  # + a spare
-    below = (1 << lane) - 1
+    masks, is_root = [], []
     for q in range(8):
         i = 32 * q + lane + 1
         v = torch.zeros((n, 32), dtype=torch.int64)
         p = torch.zeros(32, dtype=torch.int64)
         for j in range(NROOTS + 1):
-            v ^= gf.mul_log(lamlog[:, j:j + 1], p.expand(n, 32))
-            p = (p + i) % NN
-        is_root = (i <= NN) & (v == 0)
-        mask = (is_root.long() << lane).sum(dim=1, keepdim=True)  # ballot
-        rank = count[:, None] + _popc(mask & below)
-        slot = torch.where(is_root & (rank < NROOTS), rank, NROOTS)
-        root.scatter_(1, slot, torch.where(slot < NROOTS, i, 0))
-        count = count + _popc(mask[:, 0])
+            v ^= mul_log(lamlog[:, j:j + 1], p.expand(n, 32))
+            p = torch.where(p + i >= NN, p + i - NN, p + i)
+        root_q = (i <= NN) & (v == 0)
+        is_root.append(root_q)
+        masks.append((root_q.long() << lane).sum(dim=1, keepdim=True))
+    pops = torch.cat([_popc(m) for m in masks], dim=1)           # [B, 8]
+    count = pops.sum(dim=1)
+    before = pops.cumsum(dim=1) - pops
+    below = (1 << lane) - 1
+    root = torch.zeros((n, NROOTS + 1), dtype=torch.int64)  # + a spare
+    for q in range(8):
+        rank = before[:, q:q + 1] + _popc(masks[q] & below)
+        slot = torch.where(is_root[q] & (rank < NROOTS), rank, NROOTS)
+        root.scatter_(1, slot, torch.where(slot < NROOTS, 32 * q + lane + 1,
+                                           0))
     root = root[:, :NROOTS]
     fail = count != deg
 
     om = torch.zeros((n, 32), dtype=torch.int64)
     for j in range(NROOTS):
-        term = gf.mul_log(s_log[:, (lane - j).clamp(min=0)],
-                          lamlog[:, j:j + 1].expand(n, 32))
+        term = mul_log(s_log[:, (lane - j).clamp(min=0)],
+                       lamlog[:, j:j + 1].expand(n, 32))
         om ^= torch.where(j <= lane, term, 0)
     omlog = index[om]
 
     valid = lane < count[:, None]
     num1 = torch.zeros((n, 32), dtype=torch.int64)
     for k in range(NROOTS):
-        num1 ^= gf.mul_log(omlog[:, k:k + 1].expand(n, 32), (k * root) % NN)
-    num2 = alpha[(root * (FCR - 1) + NN) % NN]
+        num1 ^= mul_log(omlog[:, k:k + 1].expand(n, 32), (k * root) % NN)
+    num2 = alpha2[(root * (FCR - 1) + NN) % NN]
     den = torch.zeros((n, 32), dtype=torch.int64)
     for m in range(NROOTS // 2):
-        den ^= gf.mul_log(lamlog[:, 2 * m + 1:2 * m + 2].expand(n, 32),
-                          (2 * m * root) % NN)
+        den ^= mul_log(lamlog[:, 2 * m + 1:2 * m + 2].expand(n, 32),
+                       (2 * m * root) % NN)
     den_zero = (valid & (den == 0)).any(dim=1)
     good = valid & (num1 != 0) & (den != 0)
     mag = torch.where(
-        good, alpha[(index[num1] + index[num2] + NN - index[den]) % NN], 0)
+        good, alpha2[(index[num1] + index[num2] + NN - index[den]) % NN], 0)
     loc = (IPRIM - 1 + (root - 1) * IPRIM) % NN
     failed = fail | den_zero
     err = torch.zeros((n, NN + 1), dtype=torch.int64)

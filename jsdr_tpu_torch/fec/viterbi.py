@@ -2,15 +2,18 @@
 the port of :mod:`jsdr_tpu.fec.viterbi` (FECDecoder.java:203-278).
 
 :func:`viterbi27_bytes` decodes frames to bytes: for CUDA tensors it
-launches kernel A (``ops/csrc/fec_viterbi.cu``: deinterleave, branch
-metrics, the 2566 ACS steps, the chain-back and the byte packing in one
-launch, one warp a frame), for CPU tensors it runs the plain version
+launches kernel A (``ops/csrc/fec_viterbi.cu``: deinterleave, pair
+metrics, the 2566 ACS steps with a survivor word a state, the 80-step
+chain-back over the window words and the byte packing in one launch, one
+CTA a frame), for CPU tensors it runs the plain version
 :func:`viterbi27_bits_ref`: the 64-state add-compare-select as a loop over
 the 2566 bit steps, vectorised over the batch, with the reference's tie
 rule (``dec = b > a``) and int32 metrics, and the chain-back from state 0.
 The METTAB lookup indexes the table directly (the reference's nibble
 one-hot matmul exists to avoid TPU gathers). :func:`_viterbi_lanes` is
-kernel A's lane layout in plain PyTorch; only the tests call it.
+kernel A's walk in plain PyTorch, :func:`_window_words` and
+:func:`_chain_back` its register exchange and chain-back on any
+decisions; only the tests call them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ _COL = np.arange(1, ROWS).repeat(COLUMNS)
 _ROW = np.tile(np.arange(COLUMNS), ROWS - 1)
 _DEINT_IDX = np.asarray((_ROW * ROWS + _COL)[: 2 * NBITS], dtype=np.int64)
 _OUT_BYTES = (NBITS - K_FLUSH) // 8
+_WINDOW = 32                                   # steps a survivor word holds
+_WINDOWS = (NBITS - K_FLUSH) // _WINDOW        # 80
 
 
 def branch_metrics(symbols: torch.Tensor) -> torch.Tensor:
@@ -166,51 +171,85 @@ def viterbi27(symbols: torch.Tensor) -> torch.Tensor:
     return viterbi27_bytes(flat).reshape(*lead, _OUT_BYTES)
 
 
+def _pair_metrics(symbols: torch.Tensor) -> torch.Tensor:
+    """Kernel A's pre-pass: [B, 2*NBITS] symbols -> [B, NBITS, 4] pair
+    metrics METTAB[a][s0] + METTAB[b][s1] at pair (a << 1) | b, as int16
+    (METTAB lies in [-372, 20], so a pair in [-744, 40])."""
+    return branch_metrics(symbols).to(torch.int16)
+
+
+def _window_words(decisions: torch.Tensor) -> torch.Tensor:
+    """The register exchange on given decisions [NBITS, B, 64] (True: the
+    path from old state j+32 won): each state's survivor word becomes its
+    chosen predecessor's word shifted left with the decision in bit 0
+    (the predecessor of state s is (s >> 1) | (dec << 5)). Returns the
+    words at the last step of each window, [80, B, 64] int64 (32 bits):
+    window w covers steps 6 + 32w ... 37 + 32w."""
+    n_steps, n_batch, _ = decisions.shape
+    s = torch.arange(_N_STATES)
+    word = torch.zeros((n_batch, _N_STATES), dtype=torch.int64)
+    out = torch.empty((_WINDOWS, n_batch, _N_STATES), dtype=torch.int64)
+    for t in range(n_steps):
+        d = decisions[t].long()
+        pred = (s >> 1) | (d << 5)
+        word = ((word.gather(1, pred) << 1) | d) & 0xFFFFFFFF
+        if t >= K_FLUSH and (t - K_FLUSH) % _WINDOW == _WINDOW - 1:
+            out[(t - K_FLUSH) // _WINDOW] = word
+    return out
+
+
+def _chain_back(words: torch.Tensor) -> torch.Tensor:
+    """Kernel A's chain-back over the window words [80, B, 64]: one
+    dependent step a window from state 0 (``word = W[w][s]``, its bytes
+    big-endian are output bytes 4w ... 4w+3, ``s = word >> 26``, the
+    window's six earliest decisions). Returns [B, 320] uint8."""
+    n_batch = words.shape[1]
+    state = torch.zeros((n_batch, 1), dtype=torch.int64)
+    out = torch.empty((n_batch, _OUT_BYTES), dtype=torch.uint8)
+    shifts = torch.tensor([24, 16, 8, 0])
+    for w in range(_WINDOWS - 1, -1, -1):
+        word = words[w].gather(1, state)                      # [B, 1]
+        out[:, 4 * w:4 * w + 4] = ((word >> shifts) & 0xFF).to(torch.uint8)
+        state = word >> 26
+    return out
+
+
 def _viterbi_lanes(symbols: torch.Tensor) -> torch.Tensor:
     """Kernel A's walk in plain PyTorch: [B, 2*NBITS] symbols -> [B, 320]
-    bytes. Lane l holds old states l and l+32 and forms new states 2l and
-    2l+1 from its branch pairs SYM_A[l], SYM_B[l] (each metric
-    METTAB[bitA][s0] + METTAB[bitB][s1]); a step's decisions are two
-    ballot words (bit l of word 0: new state 2l, of word 1: new state
-    2l+1); the new metrics go back to the lanes as the four shuffles do
-    (state l from lane l >> 1, state l+32 from lane 16 + (l >> 1), the
-    even or odd one by l's parity). The chain-back reads the packed words
-    (state s: word s & 1, bit s >> 1) and packs bytes as lane 0 does.
-    Nothing on the main path calls it."""
+    bytes. The pre-pass's int16 pair metrics (:func:`_pair_metrics`);
+    lane l holds states l and l + 32 (metric and survivor word) and pulls
+    its four predecessors as the shuffles do: old states j = l >> 1 and
+    j + 32 (registers lo and hi of lane j) for new state l, j + 16 and
+    j + 48 (lo and hi of lane j + 16) for new state l + 32, each path's
+    pair from SYM_A / SYM_B by l's parity, each compare with the tie rule
+    b > a and each word shifted with its decision. The window stores and
+    the 80-step chain-back (:func:`_chain_back`) follow. Nothing on the
+    main path calls it."""
     n = symbols.shape[0]
-    met = torch.as_tensor(METTAB, dtype=torch.int32)
+    pm = _pair_metrics(symbols).to(torch.int32)              # [B, N, 4]
     lane = torch.arange(32)
+    j = lane >> 1
+    odd = (lane & 1) > 0
     sa, sb = torch.as_tensor(_SYM_A), torch.as_tensor(_SYM_B)
-    s = symbols.long().reshape(n, -1, 2)
-    a0, a1 = met[0][s[..., :1]], met[1][s[..., :1]]           # [B, N, 1]
-    b0, b1 = met[0][s[..., 1:]], met[1][s[..., 1:]]
-    bma = (torch.where(sa & 2 > 0, a1, a0)
-           + torch.where(sa & 1 > 0, b1, b0))                  # [B, N, 32]
-    bmb = (torch.where(sb & 2 > 0, a1, a0)
-           + torch.where(sb & 1 > 0, b1, b0))
+    pa, pb = torch.where(odd, sb[j], sa[j]), torch.where(odd, sa[j], sb[j])
+    pc = torch.where(odd, sb[j + 16], sa[j + 16])
+    pd = torch.where(odd, sa[j + 16], sb[j + 16])
     lo = torch.full((n, 32), _INIT_METRIC, dtype=torch.int32)
     lo[:, 0] = 0
     hi = torch.full((n, 32), _INIT_METRIC, dtype=torch.int32)
-    src, odd = lane >> 1, (lane & 1) > 0
-    weight = 1 << lane
-    words = torch.empty((NBITS, n, 2), dtype=torch.int64)
+    wlo = torch.zeros((n, 32), dtype=torch.int64)
+    whi = torch.zeros((n, 32), dtype=torch.int64)
+    words = torch.empty((_WINDOWS, n, _N_STATES), dtype=torch.int64)
     for t in range(NBITS):
-        ca, cb = bma[:, t], bmb[:, t]
-        ea, eb, oa, ob = lo + ca, hi + cb, lo + cb, hi + ca
-        words[t, :, 0] = ((eb > ea).long() * weight).sum(dim=1)
-        words[t, :, 1] = ((ob > oa).long() * weight).sum(dim=1)
-        ne, no = torch.maximum(ea, eb), torch.maximum(oa, ob)
-        lo = torch.where(odd, no[:, src], ne[:, src])
-        hi = torch.where(odd, no[:, src + 16], ne[:, src + 16])
-    state = torch.zeros((n, 1), dtype=torch.int64)
-    byte = torch.zeros(n, dtype=torch.int64)
-    out = torch.empty((n, _OUT_BYTES), dtype=torch.uint8)
-    for k in range(NBITS - K_FLUSH - 1, -1, -1):
-        word = words[k + K_FLUSH].gather(1, state & 1)
-        bit = (word >> (state >> 1)) & 1
-        byte |= bit[:, 0] << (7 - (k & 7))
-        if k & 7 == 0:
-            out[:, k >> 3] = byte
-            byte = torch.zeros_like(byte)
-        state = (state >> 1) | (bit << 5)
-    return out
+        p = pm[:, t]
+        m0, m1, m2, m3 = lo[:, j], hi[:, j], lo[:, j + 16], hi[:, j + 16]
+        w0, w1, w2, w3 = wlo[:, j], whi[:, j], wlo[:, j + 16], whi[:, j + 16]
+        a, b = m0 + p[:, pa], m1 + p[:, pb]
+        c, d = m2 + p[:, pc], m3 + p[:, pd]
+        d1, d2 = b > a, d > c
+        lo, hi = torch.maximum(a, b), torch.maximum(c, d)
+        wlo = ((torch.where(d1, w1, w0) << 1) | d1.long()) & 0xFFFFFFFF
+        whi = ((torch.where(d2, w3, w2) << 1) | d2.long()) & 0xFFFFFFFF
+        if t >= K_FLUSH and (t - K_FLUSH) % _WINDOW == _WINDOW - 1:
+            words[(t - K_FLUSH) // _WINDOW] = torch.cat([wlo, whi], dim=1)
+    return _chain_back(words)

@@ -1,27 +1,33 @@
 """The FEC kernels' walks (``ops/csrc/fec_viterbi.cu``, kernel A, and
 ``ops/csrc/fec_rs.cu``, kernel B), rehearsed on the CPU through their plain
-mirrors: ``fec/viterbi.py::_viterbi_lanes`` (two states a lane, the
-shuffle redistribution, two ballot words a step, the chain-back over the
-packed words), ``fec/rs.py::_decode_rs_lanes`` (per-lane syndromes,
-Berlekamp-Massey over the lanes, the Chien roots ranked by ballot + popc,
-Forney a slot a lane), ``fec/encode.py::_rs_parity_lanes`` (the lane-wise
-LFSR) and ``::_channel_symbols`` (each channel position from its 7-bit
-window), composed in ``fec/decoder.py::_fec_check_lanes``. Each must equal
-the plain version and the JAX package bit for bit, on golden windows,
-flipped and random windows, all-0x80 and all-zero windows, windows whose
+mirrors: ``fec/viterbi.py::_viterbi_lanes`` (int16 pair metrics, two
+states a lane pulling their four predecessors by shuffle, a survivor word
+a state, the window stores and the 80-step chain-back ``_chain_back``),
+``fec/rs.py::_decode_rs_lanes`` (syndromes in four quarters, Berlekamp-
+Massey over the lanes, the Chien roots ranked over rounds by ballot +
+popc, Forney a slot a lane), ``fec/encode.py::_rs_parity_lanes`` (the
+parity as a table product over the map R of ``fec/_device.py``) and
+``::_channel_symbols`` (each channel position from its 7-bit window),
+composed in ``fec/decoder.py::_fec_check_lanes``. Each must equal the
+plain version and the JAX package bit for bit, on golden windows, flipped
+and random windows, all-0x80 and all-zero windows, windows whose
 codewords carry exactly 16 and 17 byte errors, and every METTAB input.
-The kernels' constants are held to ``fec/tables.py``. chip_smoke.py
-phase 18 holds the CUDA kernels against the plain versions on the card."""
+The jump chain-back must equal the step-by-step one on any decisions, and
+R the JAX package's LFSR on every single-bit payload. The kernels'
+constants are held to ``fec/tables.py``. chip_smoke.py phase 18 holds the
+CUDA kernels against the plain versions on the card."""
 
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from jsdr_tpu.fec import decoder as JD
+from jsdr_tpu.fec import encode as JE
 from jsdr_tpu.fec import rs as JRS
 from jsdr_tpu.fec import viterbi as JV
 from jsdr_tpu_torch.fec import _device
@@ -182,13 +188,18 @@ def _constants(path: Path) -> dict:
 
 def test_kernel_constants_match_tables():
     """What the kernels hard-code: the tables' scalars, the table blobs'
-    offsets (``fec/_device.py``), and the parity the re-encode takes as a
+    offsets and contents (``fec/_device.py``: the doubled ALPHA_TO, the
+    parity map R as logs), and the parity the re-encode takes as a
     popcount (``PARTAB`` is the bit parity)."""
     a = _constants(CSRC / "fec_viterbi.cu")
     assert (a["kNBits"], a["kFlush"], a["kRows"], a["kCols"], a["kFrame"],
             a["kInit"]) == (T.NBITS, TV.K_FLUSH, T.ROWS, T.COLUMNS,
                             T.SYMPBLOCK, TV._INIT_METRIC)
+    assert a["kWindow"] == TV._WINDOW and TV._WINDOWS * TV._WINDOW == (
+        T.NBITS - TV.K_FLUSH)
     assert a["kTabWords"] == _device.VITERBI_TABLE.shape[0]
+    met = np.asarray(T.METTAB)        # a pair metric is kept as int16
+    assert -2 ** 15 <= 2 * met.min() and 2 * met.max() < 2 ** 15
     b = _constants(CSRC / "fec_rs.cu")
     assert (b["kNN"], b["kRoots"], b["kA0"], b["kFcr"], b["kPrim"],
             b["kIprim"], b["kRsPad"], b["kPayload"], b["kNBits"],
@@ -196,16 +207,79 @@ def test_kernel_constants_match_tables():
             b["kPolyB"]) == (T.NN, T.NROOTS, T.A0, T.FCR, T.PRIM, T.IPRIM,
                              T.RSPAD, T.BLOCKSIZE, T.NBITS, T.SYMPBLOCK,
                              T.ROWS, T.COLUMNS, T.CPOLYA, T.CPOLYB)
+    assert b["kData"] == T.BLOCKSIZE // 2
     off = _device.RS_OFFSETS
-    assert (b["kTabAlpha"], b["kTabIndex"], b["kTabGen"], b["kTabScr"],
-            b["kTabSync"]) == (off["alpha"], off["index"], off["gen"],
-                               off["scrambler"], off["sync"])
-    tab = _device.RS_TABLE
-    np.testing.assert_array_equal(tab[off["sync"]:], T.SYNC_BITS)
-    np.testing.assert_array_equal(tab[off["gen"]:off["scrambler"]],
-                                  _device.GPOLY)
+    assert (b["kTabAlpha"], b["kTabIndex"], b["kTabParity"], b["kTabScr"],
+            b["kTabSync"], b["kTabBytes"]) == (
+                off["alpha"], off["index"], off["parity"], off["scrambler"],
+                off["sync"], off["end"])
+    tab = _device.rs_table()
+    assert tab.shape == (off["end"],) and off["end"] % 16 == 0
+    alpha2 = tab[off["alpha"]:off["index"]]
+    np.testing.assert_array_equal(alpha2[:255], np.asarray(T.ALPHA_TO)[:255])
+    np.testing.assert_array_equal(alpha2[255:510], alpha2[:255])
+    i, j = np.meshgrid(np.arange(255), np.arange(255))
+    np.testing.assert_array_equal(alpha2[i + j],
+                                  np.asarray(T.ALPHA_TO)[(i + j) % 255])
+    np.testing.assert_array_equal(tab[off["index"]:off["parity"]],
+                                  T.INDEX_OF)
+    r = _device.parity_map()
+    assert r.shape == (128, 32)
+    rlog = tab[off["parity"]:off["scrambler"]].reshape(128, 32)
+    np.testing.assert_array_equal(rlog == T.A0, r == 0)
+    np.testing.assert_array_equal(
+        np.where(r == 0, 0, np.asarray(T.ALPHA_TO)[rlog % 255]), r)
+    np.testing.assert_array_equal(tab[off["scrambler"]:off["sync"]],
+                                  T.SCRAMBLER[:320])
+    np.testing.assert_array_equal(tab[off["sync"]:off["sync"] + 65],
+                                  T.SYNC_BITS)
+    assert not tab[off["sync"] + 65:].any()
     v = np.arange(256)
     np.testing.assert_array_equal(
         T.PARTAB, [bin(x).count("1") & 1 for x in v])
     np.testing.assert_array_equal(_device.VITERBI_TABLE[:512],
                                   np.asarray(T.METTAB).reshape(-1))
+
+
+@pytest.mark.parametrize("kind", ["random", "all_false", "all_true",
+                                  "acs"])
+def test_jump_chain_back(kind):
+    """The 80-step chain-back over the window words equals the
+    step-by-step chain-back (``_traceback``) on any decisions: random
+    arrays, all ties (no path from j+32 wins: all False), all True, and
+    real ACS decisions of random symbols."""
+    rng = np.random.default_rng(23)
+    shape = (T.NBITS, 3, 64)
+    if kind == "random":
+        dec = torch.from_numpy(rng.integers(0, 2, shape).astype(bool))
+    elif kind == "all_false":
+        dec = torch.zeros(shape, dtype=torch.bool)
+    elif kind == "all_true":
+        dec = torch.ones(shape, dtype=torch.bool)
+    else:
+        sym = torch.from_numpy(rng.integers(0, 256, (3, 2 * T.NBITS))
+                               .astype(np.uint8))
+        dec = TV._acs(TV.branch_metrics(sym))
+    got = TV._chain_back(TV._window_words(dec))
+    want = TV.bits_to_bytes(TV._traceback(dec))
+    assert torch.equal(got, want)
+    if kind == "all_false":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("codeword", [0, 1])
+def test_parity_map_single_bits(codeword):
+    """R reproduces the JAX package's LFSR (``jsdr_tpu.fec.encode.
+    rs_parity``) on every single-bit payload of a codeword (1,024 of them;
+    the map is linear over GF(2), so this is exhaustive) and on random
+    payloads, through the kernel's table product ``_rs_parity_lanes``."""
+    k, bit = np.divmod(np.arange(1024), 8)
+    pay = np.zeros((1024, 256), np.uint8)
+    pay[np.arange(1024), 2 * k + codeword] = (1 << bit).astype(np.uint8)
+    rng = np.random.default_rng(31 + codeword)
+    pay = np.concatenate([pay, rng.integers(0, 256, (16, 256),
+                                            dtype=np.uint8)])
+    got = TE._rs_parity_lanes(torch.from_numpy(pay)).numpy()
+    want = np.asarray(jax.vmap(JE.rs_parity)(jnp.asarray(pay)))
+    np.testing.assert_array_equal(got, want)
+    assert not got[:1024, 1 - codeword].any()
