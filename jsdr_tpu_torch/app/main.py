@@ -287,13 +287,16 @@ def cmd_telemetry_stream(args) -> int:
     -> N batched demod instances -> decoded frames printed as they
     arrive — the running application loop of the reference's FUNcube
     tabs, on the port's Session executor. With ``--mesh DPxSP`` the same
-    Session runs the sharded step (instances over dp, time over sp)."""
+    Session runs the sharded step (instances over dp, time over sp). With
+    ``--trace-out PATH`` its spans and counters go to PATH at exit, as
+    Chrome trace JSON on the host clock."""
     from pathlib import Path
 
     from ..demod.bpsk import BpskConfig
     from ..io.live import PacedSource, StreamSource
     from ..io.sources import FileSource
     from ..runtime.executor import Session, TelemetryStage
+    from ..runtime.log import StageTimers
 
     rate = args.rate
     dev_conv = args.device_convert
@@ -333,7 +336,8 @@ def cmd_telemetry_stream(args) -> int:
     block_samples = TelemetryStage.block_samples_for(cfg, mesh, dofft)
     session = Session(source=chunks, block_samples=block_samples,
                       i_corr=args.icorr, q_corr=args.qcorr,
-                      device=args.device)
+                      device=args.device,
+                      timers=StageTimers(spans=bool(args.trace_out)))
     session.pubsub.listen(on_frame)
     if args.checkpoint:
         session.checkpoint_path = Path(args.checkpoint)
@@ -349,12 +353,19 @@ def cmd_telemetry_stream(args) -> int:
         print(f"mesh dp={mesh.shape['dp']} x sp={mesh.shape['sp']}: "
               f"{mesh.size} shards on {mesh.device}; block={block_samples} "
               "samples")
-    n = session.run([stage], max_blocks=args.blocks)
+    try:
+        n = session.run([stage], max_blocks=args.blocks)
+    finally:
+        if args.trace_out:
+            session.tracer.write_chrome_trace(args.trace_out)
     if args.checkpoint:
         session.save_checkpoint([stage])
         print(f"stream state -> {args.checkpoint}")
+    c = session.tracer.counters
     print(f"{n} blocks streamed, frames={frames[0]}, "
-          f"dropped={session.dropped_blocks or 'none'}")
+          f"dropped={session.dropped_blocks or 'none'}, "
+          f"hits={c['drain.hits']}, good={c['drain.good']}, "
+          f"failed={c['drain.failed']}")
     return 0
 
 
@@ -364,7 +375,7 @@ def cmd_telemetry(args) -> int:
     from ..ops.cplx import from_complex
     from ..runtime.device import require_device
 
-    if _is_live(args.source) or args.pace or args.mesh:
+    if _is_live(args.source) or args.pace or args.mesh or args.trace_out:
         return cmd_telemetry_stream(args)
     dev = require_device(args.device)
     iq, rate = _load_iq(args, args.rate)
@@ -659,6 +670,10 @@ def main(argv=None):
     tl.add_argument("--mesh", metavar="DPxSP",
                     help="multi-device sharded step (not ported yet: "
                     "raises)")
+    tl.add_argument("--trace-out", metavar="PATH",
+                    help="stream through the Session with spans on and "
+                    "write its spans and counters to PATH at exit "
+                    "(Chrome trace JSON, host clock; Perfetto opens it)")
     tl.add_argument("--device", default="cuda", help=device_help)
     tl.set_defaults(fn=cmd_telemetry)
 

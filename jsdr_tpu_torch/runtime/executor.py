@@ -14,11 +14,23 @@ Overlap: the host frames and uploads block N+1 while the card still runs
 block N. Kernels and torch ops only enqueue on the current CUDA stream,
 uploads go through pinned memory without a synchronise
 (:mod:`jsdr_tpu_torch.io.convert_device`), and the telemetry stages read
-device values back only every ``sync_every`` blocks. So ``StageTimers``
+device values back only every ``sync_every`` blocks. So the stage timers
 time the host's enqueue of each stage, not the device's work, as the
 reference's timers did under JAX's asynchronous dispatch. A stage that
 publishes host arrays every block (``SpectrumStage``) synchronises there,
 as the reference's does.
+
+Tracing (``Session.tracer``, a :class:`~jsdr_tpu_torch.runtime.log.
+StageTimers`): each block's top-level spans are ``session.frame`` (waiting
+for the source's chunks and the framer until the block is whole), ``h2d``,
+one span a stage and ``publish:audio-frame``; inside them every
+``publish:<topic>`` (the listeners' time), ``spectrum.readback``,
+``telemetry.step``, ``telemetry.drain`` and, inside a drain,
+``drain.readback`` (every host wait on the card) and ``drain.fec``. The
+counters are ``session.blocks``, ``session.retries``, ``drain.runs``
+(drains with blocks pending), ``drain.hits`` (windows decoded),
+``drain.good`` and ``drain.failed``. Spans after the last block (the
+source's end, the final flush) carry block n, the number of blocks.
 
 The stages: ``SpectrumStage``, ``TelemetryStage`` (on one device, or
 sharded over a device mesh, :mod:`jsdr_tpu_torch.parallel`),
@@ -29,6 +41,7 @@ as host arrays every block), ``AudioSinkStage`` and ``RecorderStage``
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Iterator, Optional
@@ -38,7 +51,7 @@ import torch
 
 from ..ops.cplx import CF
 from ..runtime.device import require_device
-from .log import Logger, StageTimers
+from .log import Logger, StageTimers, set_latest
 from .pubsub import PubSub
 from .state import load_state, save_state
 
@@ -51,6 +64,13 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
             idx = torch.cuda.current_device()
         return d.type, idx
     return key(a) == key(b)
+
+
+_NO_STAGE = nullcontext()
+
+
+def _no_stage(name: str, samples: int = 0):
+    return _NO_STAGE
 
 
 @dataclass
@@ -69,13 +89,21 @@ class Session:
     :func:`~jsdr_tpu_torch.runtime.device.require_device`) is where blocks
     go; every stage that carries state must hold it on the same device
     (the stages take the same ``device`` argument).
+
+    ``tracer`` is the Session's :class:`~jsdr_tpu_torch.runtime.log.
+    StageTimers`: ``timers`` when that is one (a ``StageTimers(spans=
+    True)`` records spans), else a new one. Another ``timers`` object
+    (anything with ``stage(name, samples)``) gets exactly the stage calls:
+    "h2d", then each stage's name, once a block; spans, counters and
+    publishes go to the tracer alone. A ``run`` that starts while torch's
+    profiler records keeps the tracer's spans on to its end.
     """
 
     source: Iterator[np.ndarray]          # complex64 or int16 chunks
     block_samples: int
     pubsub: PubSub = field(default_factory=PubSub)
     logger: Logger = field(default_factory=Logger)
-    timers: StageTimers = field(default_factory=StageTimers)
+    timers: Any = None
     checkpoint_path: Optional[Path] = None
     checkpoint_every_blocks: int = 0
     checkpoint_meta: dict = field(default_factory=dict)  # stamped + checked
@@ -87,76 +115,115 @@ class Session:
 
     def __post_init__(self):
         self.device = require_device(self.device)
+        if self.timers is None:
+            self.timers = StageTimers()
+        self.tracer = (self.timers if isinstance(self.timers, StageTimers)
+                       else StageTimers())
 
-    def run(self, stages: list["Stage"], max_blocks: Optional[int] = None):
-        """Drive blocks through the stages until the source ends."""
-        from ..io.convert_device import s16_to_cf, upload_cf, upload_raw
+    def publish(self, topic: str, value):
+        """Publish on the bus, the listeners' time in a span."""
+        with self.tracer.span(f"publish:{topic}"):
+            self.pubsub.publish(topic, value)
+
+    def _blocks(self):
+        """(raw, block) for every whole block of the source."""
         from ..io.framer import BlockFramer, RawBlockFramer
 
-        for stage in stages:
-            dev = getattr(stage, "device", None)
-            if dev is not None and not _same_device(dev, self.device):
-                raise ValueError(
-                    f"stage {stage.name} holds its state on {dev}, the "
-                    f"session runs on {self.device}")
         framer = None
-        n = 0
         for chunk in self.source:
             if framer is None:
                 raw = np.asarray(chunk).dtype == np.int16
                 framer = (RawBlockFramer(self.block_samples, self.channels)
                           if raw else BlockFramer(self.block_samples))
             for block in framer.push(chunk):
-                with self.timers.stage("h2d", samples=self.block_samples):
-                    if raw:
-                        # raw fan-out precedes conversion — recorder taps
-                        # see the exact capture bytes (recorder.java:66-74)
-                        self.pubsub.publish("raw-block", block)
-                        dev = s16_to_cf(upload_raw(block, self.device),
-                                        self.i_corr, self.q_corr,
-                                        channels=self.channels)
-                    else:
-                        dev = upload_cf(block, self.device)
-                for stage in stages:
-                    with self.timers.stage(stage.name, samples=len(block)):
-                        # snapshot carried state so a retry re-runs the block
-                        # against the SAME state the failed attempt saw (the
-                        # first attempt may have advanced state before dying
-                        # in e.g. a publish callback)
-                        state0 = stage.state
+                yield raw, block
+
+    def run(self, stages: list["Stage"], max_blocks: Optional[int] = None):
+        """Drive blocks through the stages until the source ends."""
+        for stage in stages:
+            dev = getattr(stage, "device", None)
+            if dev is not None and not _same_device(dev, self.device):
+                raise ValueError(
+                    f"stage {stage.name} holds its state on {dev}, the "
+                    f"session runs on {self.device}")
+        tr = self.tracer
+        set_latest(tr)
+        spans_on = tr.spans_on
+        tr.spans_on = spans_on or torch.autograd._profiler_enabled()
+        try:
+            return self._run(stages, max_blocks)
+        finally:
+            tr.spans_on = spans_on
+
+    def _run(self, stages, max_blocks):
+        from ..io.convert_device import s16_to_cf, upload_cf, upload_raw
+
+        tr = self.tracer
+        # a caller's own timers get the stage calls; the tracer's stage
+        # spans run inside them
+        outer = (_no_stage if self.timers is tr else self.timers.stage)
+        blocks = self._blocks()
+        n = 0
+        while True:
+            tr.begin_block(n)
+            with tr.span("session.frame"):
+                raw, block = next(blocks, (None, None))
+            if block is None:
+                break
+            with (outer("h2d", samples=self.block_samples),
+                  tr.stage("h2d", samples=self.block_samples)):
+                if raw:
+                    # raw fan-out precedes conversion — recorder taps
+                    # see the exact capture bytes (recorder.java:66-74)
+                    self.publish("raw-block", block)
+                    dev = s16_to_cf(upload_raw(block, self.device),
+                                    self.i_corr, self.q_corr,
+                                    channels=self.channels)
+                else:
+                    dev = upload_cf(block, self.device)
+            for stage in stages:
+                with (outer(stage.name, samples=len(block)),
+                      tr.stage(stage.name, samples=len(block))):
+                    # snapshot carried state so a retry re-runs the block
+                    # against the SAME state the failed attempt saw (the
+                    # first attempt may have advanced state before dying
+                    # in e.g. a publish callback)
+                    state0 = stage.state
+                    try:
+                        stage.process(dev, self)
+                    except Exception as e:  # noqa: BLE001
+                        # transient device faults: retry once, then
+                        # skip the block for this stage and keep
+                        # streaming
+                        tr.count("session.retries")
+                        self.logger.alert(
+                            f"stage {stage.name} failed: {e!r:.120}; retrying")
+                        stage.state = state0
                         try:
                             stage.process(dev, self)
-                        except Exception as e:  # noqa: BLE001
-                            # transient device faults: retry once, then
-                            # skip the block for this stage and keep
-                            # streaming
-                            self.logger.alert(
-                                f"stage {stage.name} failed: {e!r:.120}; retrying")
+                        except Exception as e2:  # noqa: BLE001
                             stage.state = state0
-                            try:
-                                stage.process(dev, self)
-                            except Exception as e2:  # noqa: BLE001
-                                stage.state = state0
-                                self.dropped_blocks[stage.name] = (
-                                    self.dropped_blocks.get(stage.name, 0) + 1)
-                                self.logger.alert(
-                                    f"stage {stage.name} failed twice; "
-                                    f"dropping block {n} "
-                                    f"(total dropped: "
-                                    f"{self.dropped_blocks[stage.name]}): "
-                                    f"{e2!r:.120}")
-                                self.pubsub.publish(
-                                    "dropped-block",
-                                    {"stage": stage.name, "block": n,
-                                     "total": self.dropped_blocks[stage.name]})
-                self.pubsub.publish("audio-frame", n)
-                n += 1
-                if (self.checkpoint_path and self.checkpoint_every_blocks
-                        and n % self.checkpoint_every_blocks == 0):
-                    self.save_checkpoint(stages)
-                if max_blocks is not None and n >= max_blocks:
-                    self._finish(stages)
-                    return n
+                            self.dropped_blocks[stage.name] = (
+                                self.dropped_blocks.get(stage.name, 0) + 1)
+                            self.logger.alert(
+                                f"stage {stage.name} failed twice; "
+                                f"dropping block {n} "
+                                f"(total dropped: "
+                                f"{self.dropped_blocks[stage.name]}): "
+                                f"{e2!r:.120}")
+                            self.publish(
+                                "dropped-block",
+                                {"stage": stage.name, "block": n,
+                                 "total": self.dropped_blocks[stage.name]})
+            self.publish("audio-frame", n)
+            n += 1
+            tr.count("session.blocks")
+            if (self.checkpoint_path and self.checkpoint_every_blocks
+                    and n % self.checkpoint_every_blocks == 0):
+                self.save_checkpoint(stages)
+            if max_blocks is not None and n >= max_blocks:
+                tr.begin_block(n)
+                break
         self._finish(stages)
         return n
 
@@ -234,15 +301,18 @@ class SpectrumStage(Stage):
                 blocks = CF(blocks.re * w, blocks.im * w)
             db, lines = psd_waterfall(fft_cf(blocks),
                                       width=self.waterfall_width)
-            session.pubsub.publish("waterfall-line", lines.cpu().numpy())
-            session.pubsub.publish("fft-psd", db.cpu().numpy())
+            with session.tracer.span("spectrum.readback"):
+                lines, db = lines.cpu().numpy(), db.cpu().numpy()
+            session.publish("waterfall-line", lines)
+            session.publish("fft-psd", db)
         else:
             res = spectrum_block(blocks, rate=float(self.rate),
                                  window=self.window)
-            session.pubsub.publish("fft-psd", res.psd.cpu().numpy())
-            session.pubsub.publish(
-                "fft-peak",
-                (int(res.peak_freq[-1]), float(res.peak_db[-1])))
+            with session.tracer.span("spectrum.readback"):
+                psd = res.psd.cpu().numpy()
+                peak = (int(res.peak_freq[-1]), float(res.peak_db[-1]))
+            session.publish("fft-psd", psd)
+            session.publish("fft-peak", peak)
 
 
 class TelemetryStage(Stage):
@@ -344,59 +414,76 @@ class TelemetryStage(Stage):
     def process(self, block, session: Session):
         from ..demod.bpsk import bpsk_block_batch
         blocks = _broadcast(block, self.n)
-        if self.mesh is not None:
-            out, self.state = self._sharded(
-                blocks, self.state, self.tunings, dofft=self.dofft,
-                track_high=self.track_high)
-        else:
-            out, self.state = bpsk_block_batch(
-                blocks, self.cfg, self.state, self.tunings,
-                dofft=self.dofft, track_high=self.track_high)
+        with session.tracer.span("telemetry.step"):
+            if self.mesh is not None:
+                out, self.state = self._sharded(
+                    blocks, self.state, self.tunings, dofft=self.dofft,
+                    track_high=self.track_high)
+            else:
+                out, self.state = bpsk_block_batch(
+                    blocks, self.cfg, self.state, self.tunings,
+                    dofft=self.dofft, track_high=self.track_high)
+        self._queue(out, session)
+
+    def _queue(self, out, session: Session):
+        """Keep a block's outputs; drain every ``sync_every`` blocks."""
         self._pending.append(out)
         self._n_blocks += 1
         if self._n_blocks % self.sync_every == 0:
-            self._drain(session)
+            self.finish(session)
 
     def finish(self, session: Session):
-        self._drain(session)
+        with session.tracer.span("telemetry.drain"):
+            self._drain(session)
 
     def _drain(self, session: Session):
         from ..fec.decoder import fec_decode
         pending, self._pending = self._pending, []
         if not pending:
             return
+        tr = session.tracer
+        tr.count("drain.runs")
         tunings = self.tunings or [self.cfg.tuning]
         # live raw/ds/bit/sync counters, the reference's on-screen
         # instrumentation (FUNcubeBPSKDemod.java:219-228)
-        c = self.state.counters.cpu().numpy()
-        session.pubsub.publish(
+        with tr.span("drain.readback"):
+            c = self.state.counters.cpu().numpy()
+        session.publish(
             "telemetry-counters",
             {s: tuple(int(v) for v in c[s]) for s in range(self.n_real)})
         for s in range(self.n_real):
-            session.pubsub.publish(f"FUNcube{s}-bpsk-tune", tunings[s])
+            session.publish(f"FUNcube{s}-bpsk-tune", tunings[s])
         # every hit of every pending block, in (block, instance, hit) order
-        # (mesh padding instances publish nothing)
+        # (mesh padding instances publish nothing); the masked reads wait
+        # for the card
         where, windows, corrs = [], [], []
-        for out in pending:
-            hit = ((torch.arange(out.windows.shape[1],
-                                 device=out.n_hits.device)[None, :]
-                    < out.n_hits[:, None])
-                   & (torch.arange(out.n_hits.shape[0],
-                                   device=out.n_hits.device)
-                      < self.n_real)[:, None])
-            windows.append(out.windows[hit])
-            corrs.append(out.hit_corr[hit])
-            where.append(torch.nonzero(hit)[:, 0])
-        windows = torch.cat(windows)
+        with tr.span("drain.readback"):
+            for out in pending:
+                hit = ((torch.arange(out.windows.shape[1],
+                                     device=out.n_hits.device)[None, :]
+                        < out.n_hits[:, None])
+                       & (torch.arange(out.n_hits.shape[0],
+                                       device=out.n_hits.device)
+                          < self.n_real)[:, None])
+                windows.append(out.windows[hit])
+                corrs.append(out.hit_corr[hit])
+                where.append(torch.nonzero(hit)[:, 0])
+            windows = torch.cat(windows)
+        tr.count("drain.hits", len(windows))
         if not len(windows):
             return
-        res = fec_decode(windows)
-        demod = torch.cat(where).cpu().numpy()
-        corr = torch.cat(corrs).cpu().numpy()
-        ok, rc = res.ok.cpu().numpy(), res.rc.cpu().numpy()
-        payload = res.payload.cpu().numpy()
+        with tr.span("drain.fec"):
+            res = fec_decode(windows)
+        with tr.span("drain.readback"):
+            demod = torch.cat(where).cpu().numpy()
+            corr = torch.cat(corrs).cpu().numpy()
+            ok, rc = res.ok.cpu().numpy(), res.rc.cpu().numpy()
+            payload = res.payload.cpu().numpy()
+        good = int(ok.sum())
+        tr.count("drain.good", good)
+        tr.count("drain.failed", len(ok) - good)
         for j, s in enumerate(demod):
-            session.pubsub.publish("telemetry-frame", {
+            session.publish("telemetry-frame", {
                 "demod": int(s),
                 "tuning": tunings[s],
                 "ok": bool(ok[j]),
@@ -432,25 +519,24 @@ class SpectrumTelemetryStage(TelemetryStage):
 
     def process(self, block, session: Session):
         from ..demod.bpsk import bpsk_block_batch_spectrum
-        spec, out, self.state = bpsk_block_batch_spectrum(
-            _broadcast(block, self.n), self.cfg, self.state, self.tunings,
-            window=self.window)
-        self._pending.append(out)
+        with session.tracer.span("telemetry.step"):
+            spec, out, self.state = bpsk_block_batch_spectrum(
+                _broadcast(block, self.n), self.cfg, self.state,
+                self.tunings, window=self.window)
         self._spec = spec
-        self._n_blocks += 1
-        if self._n_blocks % self.sync_every == 0:
-            self._drain(session)
+        self._queue(out, session)
 
     def _drain(self, session: Session):
         from ..ops.spectrum_fused import waterfall_natural_order
         spec, self._spec = self._spec, None
         if spec is not None:
             # stream 0's lines/peak (instances share the input stream)
-            lines = waterfall_natural_order(spec.wf)[0].cpu().numpy()
-            session.pubsub.publish("waterfall-line", lines)
-            session.pubsub.publish(
-                "fft-peak", (int(spec.peak_freq[0, -1]),
-                             float(spec.peak_db[0, -1])))
+            with session.tracer.span("drain.readback"):
+                lines = waterfall_natural_order(spec.wf)[0].cpu().numpy()
+                peak = (int(spec.peak_freq[0, -1]),
+                        float(spec.peak_db[0, -1]))
+            session.publish("waterfall-line", lines)
+            session.publish("fft-peak", peak)
         super()._drain(session)
 
 
@@ -477,7 +563,7 @@ class DemodStage(Stage):
     def process(self, block, session: Session):
         from ..demod.am_fm import demod_block
         audio, _, _, self.state = demod_block(block, self.cfg, self.state)
-        session.pubsub.publish("audio-out", audio.cpu().numpy())
+        session.publish("audio-out", audio.cpu().numpy())
 
 
 class AudioSinkStage(Stage):

@@ -1,15 +1,18 @@
 """The port keeps its own copies of the JAX package's JAX-free host modules
 (``fec.tables``, ``fec.ref_numpy``, ``io.convert``, ``io.sources``,
 ``io.flac``, ``io.framer``, ``io.recorder``, ``io.live``, ``io.fcd``,
-``runtime.pubsub``, ``runtime.log``, ``runtime.config``, ``display.*``,
-and the shell's model in ``app.tui``) so that it imports nothing of
-``jsdr_tpu``.
+``runtime.pubsub``, ``runtime.log``'s ``Logger``, ``runtime.config``,
+``display.*``, and the shell's model in ``app.tui``) so that it imports
+nothing of ``jsdr_tpu``.
 
 These tests hold that rule and the copies: an AST scan of every module of
 the port and of ``chip_smoke.py`` for imports of ``jax`` or ``jsdr_tpu``,
 byte equality of the copies' tables and outputs with the reference's,
 and, for the verbatim copies, equal code (the syntax tree without the
-module docstring; for ``app.tui``, of each copied class and function)."""
+module docstring; for ``app.tui`` and ``runtime.log``, of each copied
+class and function). ``runtime.log``'s ``StageTimers`` is the port's
+tracer, grown from the reference's: its report of the same stage calls
+equals the reference's."""
 
 import ast
 import struct
@@ -41,7 +44,7 @@ SCANNED = sorted((ROOT / "jsdr_tpu_torch").rglob("*.py")) + [
 # copied without a change to their code
 VERBATIM = ("io/framer.py", "io/recorder.py", "io/live.py", "io/fcd.py",
             "io/convert.py", "io/flac.py",
-            "runtime/pubsub.py", "runtime/log.py", "runtime/config.py",
+            "runtime/pubsub.py", "runtime/config.py",
             "display/phase_scope.py")
 # the TUI's classes and functions copied without a change to their code
 # (the module around them is ported: its stages take a torch device)
@@ -216,6 +219,41 @@ def test_tui_copied_code_equals_the_reference(name):
     got = _top_level(ROOT / "jsdr_tpu_torch" / "app" / "tui.py")
     want = _top_level(ROOT / "jsdr_tpu" / "app" / "tui.py")
     assert name in got and got[name] == want[name]
+
+
+def test_logger_copied_code_equals_the_reference():
+    got = _top_level(ROOT / "jsdr_tpu_torch" / "runtime" / "log.py")
+    want = _top_level(ROOT / "jsdr_tpu" / "runtime" / "log.py")
+    assert "Logger" in got and got["Logger"] == want["Logger"]
+
+
+def test_stage_timers_report_equals_the_reference(monkeypatch):
+    """The same stage calls on one fake clock give the reference's
+    ``wall_s``, ``calls`` and ``samples``, key for key."""
+    import time
+
+    from jsdr_tpu.runtime.log import StageTimers as JTimers
+    from jsdr_tpu_torch.runtime.log import StageTimers as TTimers
+
+    now = [0]                                       # ns
+    monkeypatch.setattr(time, "perf_counter", lambda: now[0] / 1e9)
+    monkeypatch.setattr(time, "perf_counter_ns", lambda: now[0])
+    calls = [("h2d", 96000, 1_250_000), ("spectrum", 96000, 3_000_000),
+             ("telemetry", 96000, 70_000), ("h2d", 96000, 1_000),
+             ("telemetry", 0, 12_345_678), ("spectrum", 4, 0)]
+    reports = []
+    for timers in (JTimers(), TTimers(), TTimers(spans=True)):
+        for name, samples, dt in calls:
+            with timers.stage(name, samples):
+                now[0] += dt
+            now[0] += 7_777
+        reports.append({name: {k: v[k] for k in ("wall_s", "calls",
+                                                 "samples")}
+                        for name, v in timers.report().items()})
+    assert reports[0]["telemetry"] == {"wall_s": 0.0124, "calls": 2,
+                                       "samples": 96000}
+    assert reports[1] == reports[0] and reports[2] == reports[0]
+    assert list(reports[1]) == list(reports[0])
 
 
 def test_framer_recorder_and_live_sources_equal_the_reference(tmp_path):
