@@ -1421,9 +1421,13 @@ def phase_session(torch, np, dev, rng, tag):
     publish the same frames; no block is dropped and no stage fails; kernels 5, 6 and 2 launch once per block (kernel 1
     never). A checkpoint written after 3 blocks and resumed in a new
     Session ends with the frames, counters and state of the uninterrupted
-    run. Then 10 timed and 3 profiled Session blocks of this
-    configuration and of the same Session unfused (no fuse_mf, no
-    waterfall width). Returns the launch counts of the counted run."""
+    run. The telemetry step replays captured CUDA graphs once a stage's
+    four are captured: over 8 profiled blocks the device rows of kernels
+    6 and 2 are one a block each, as the wrappers' counters and the
+    tracer's replays say. Then 11 timed (warm blocks, the drains' left
+    out) and 3 profiled Session blocks of this configuration and of the
+    same Session unfused (no fuse_mf, no waterfall width). Returns the
+    launch counts of the counted run."""
     import io
     import itertools
 
@@ -1537,12 +1541,59 @@ def phase_session(torch, np, dev, rng, tag):
           f"{n2} more; frames, counters and state equal to the "
           "uninterrupted run")
 
+    # the graphed step: blocks 8-15 replay graphs (the first block of a
+    # stage runs eagerly, blocks 1-4 capture the four graphs of
+    # sync_every 4); the profiler must see kernels 6 and 2 run once in
+    # each, as many times as the wrappers count and the tracer replays
+    first, last = 8, 15
+    session = Session(source=itertools.cycle(chunks), block_samples=rate,
+                      device=dev)
+    prof, seen = profiler(torch), {}
+
+    def counts():
+        return (session.tracer.counters.get("telemetry.graph_replays", 0),
+                mix_decimate_mf.launches, timing_recover_batch.launches)
+
+    def on_replay(topic, b):
+        if topic != "audio-frame":
+            return
+        torch.cuda.synchronize()
+        if b == first - 1:
+            seen["before"] = counts()
+            prof.start()
+        elif b == last:
+            # kernels after the window's: a trace may lose its last device
+            # records
+            x = torch.zeros(1, device=dev)
+            for _ in range(8):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+            prof.stop()
+            seen["after"] = counts()
+
+    session.pubsub.listen(on_replay)
+    session.run(stages(), max_blocks=last + 1)
+    blocks = last - first + 1
+    counted_d = [a - b for a, b in zip(seen["after"], seen["before"])]
+    rows = {k: sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and k in e.name)
+            for k in ("mix_dec_mf_kernel", "timing_kernel")}
+    need(counted_d == [blocks] * 3 and set(rows.values()) == {blocks},
+         f"graphed session blocks {first}-{last}: replays and launches of "
+         f"kernels 6, 2 counted {counted_d}, device rows {rows}; want "
+         f"{blocks} of each")
+    print(f"{tag} session graphs: blocks {first}-{last} each replayed a "
+          f"graph; the profiler's device rows {rows} match the replays and "
+          f"the wrappers' launches {counted_d}")
+
     # Session blocks timed on the host clock (each ends in a synchronise,
     # at the 'audio-frame' mark the Session publishes after every block)
-    # and profiled; no drain inside the window
+    # and profiled: warm blocks, the graphs captured, no drain inside the
+    # profiled blocks, the blocks that drain (3, 7, ...) left out
     means = {}
     for fused in (True, False):
-        stg = stages(fused, sync_every=10 ** 6)
+        stg = stages(fused)
         marks = []
         prof = profiler(torch)
 
@@ -1551,16 +1602,17 @@ def phase_session(torch, np, dev, rng, tag):
                 return
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            if len(marks) == 11:
+            if len(marks) == 16:
                 prof.start()
-            elif len(marks) == 14:
+            elif len(marks) == 19:
                 prof.stop()
 
         session = Session(source=itertools.cycle(chunks), block_samples=rate,
                           device=dev)
         session.pubsub.listen(on_block)
-        session.run(stg, max_blocks=14)
-        wall = list(np.diff(marks[:11]) * 1e3)
+        session.run(stg, max_blocks=22)
+        wall = [(marks[b] - marks[b - 1]) * 1e3 for b in range(8, 22)
+                if b % 4 != 3]
         what = ("session block, fused (SpectrumStage waterfall 960 + "
                 "TelemetryStage fuse_mf)" if fused else
                 "session block, unfused (SpectrumStage + TelemetryStage)")

@@ -365,7 +365,9 @@ def cmd_telemetry_stream(args) -> int:
     print(f"{n} blocks streamed, frames={frames[0]}, "
           f"dropped={session.dropped_blocks or 'none'}, "
           f"hits={c['drain.hits']}, good={c['drain.good']}, "
-          f"failed={c['drain.failed']}")
+          f"failed={c['drain.failed']}, "
+          f"graph replays/captures/eager={c['telemetry.graph_replays']}/"
+          f"{c['telemetry.graph_captures']}/{c['telemetry.graph_eager']}")
     return 0
 
 

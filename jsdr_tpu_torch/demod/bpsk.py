@@ -47,6 +47,7 @@ indexes directly.
 from __future__ import annotations
 
 import functools
+import gc
 import warnings
 from typing import NamedTuple, Tuple
 
@@ -64,6 +65,8 @@ from ..ops.spectrum import bin_to_hz
 from ..ops.spectrum_front import sf_geometry, spectrum_front_fused
 from ..ops.spectrum_fused import spectrum_waterfall
 from ..ops.timing_kernel import timing_recover_batch
+from ..runtime.device import device_table, holding
+from ..runtime.state import tree_leaves
 from .fft_tuner import FftTunerState, fft_tuner_blocks, fft_tuner_init
 
 # Constants copied from jsdr_tpu/demod/bpsk.py:52-107 (that module imports
@@ -122,6 +125,49 @@ _VCO_SIN = np.sin(_VCO_ANG).astype(np.float32)
 NU_SCALE = 10                 # tuner numerator units per Hz (0.1 Hz)
 
 _SYNC = np.asarray(SYNC_VECTOR, dtype=np.int32)     # [65] of +/-1
+
+
+# The tables on a device, uploaded once per device and kept: a step makes
+# no pageable host-to-device copy (which waits for the card, and which a
+# CUDA graph cannot capture). Callers must not write to them. Tables that
+# follow a stage's tunings and shapes sit in bounded caches
+# (:func:`~jsdr_tpu_torch.runtime.device.device_table`): a graphed step
+# holds those its graphs read (:class:`BpskGraphStep`).
+
+@functools.lru_cache(maxsize=None)
+def _ds_taps(dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _mf_taps(dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _vco_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.as_tensor(_VCO_COS, device=dev),
+            torch.as_tensor(_VCO_SIN, device=dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_taps(dev: torch.device) -> torch.Tensor:
+    """The sync vector as float32 [1, 1, 65] conv1d weights."""
+    return torch.as_tensor(_SYNC, dtype=torch.float32, device=dev
+                           ).view(1, 1, -1)
+
+
+@device_table(maxsize=256)
+def _host_vector(values: tuple, dtype: torch.dtype,
+                 dev: torch.device) -> torch.Tensor:
+    """A per-stream host vector (tunings, flags) on ``dev``, uploaded once
+    for the blocks that share it."""
+    return torch.as_tensor(values, dtype=dtype, device=dev)
+
+
+def _flags(values, s: int) -> tuple:
+    """A bool or [S] bools as a tuple of S bools."""
+    return tuple(np.broadcast_to(np.asarray(values, bool), (s,)).tolist())
 
 
 class BpskConfig(NamedTuple):
@@ -324,7 +370,7 @@ def _tuner_full_mix(iq: CF, nu0: torch.Tensor, tu: torch.Tensor, rate: int):
     return mixed, _nco_advance(nu0, tu, rate, n)
 
 
-@functools.lru_cache(maxsize=4)
+@device_table(maxsize=4)
 def _static_ramp(tunings: tuple, n: int, rate: int,
                  device: torch.device) -> torch.Tensor:
     """[S, n] float64 host ramps (t+1)*tuning mod rate, rounded to
@@ -352,11 +398,11 @@ def _tuner_mix(iq: CF, nu0: torch.Tensor, tunings: tuple, rate: int):
            % SINCOS_SIZE)
     ang = idx.to(torch.float32) * float(np.float32(TWO_PI / SINCOS_SIZE))
     tun = np.asarray(tunings, np.float64)
-    on = torch.as_tensor(tun > 0.0, device=dev)
+    on = _host_vector(tuple((tun > 0.0).tolist()), torch.bool, dev)
     mixed = CF(iq.re * torch.where(on[:, None], torch.cos(ang), 1.0),
                iq.im * torch.where(on[:, None], torch.sin(ang), 1.0))
-    adv = torch.as_tensor(np.mod(n * tun, rate).astype(np.float32),
-                          device=dev)
+    adv = _host_vector(tuple(np.mod(n * tun, rate).astype(np.float32)
+                             .tolist()), torch.float32, dev)
     nu_out = torch.fmod(nu_r + adv, float(rate)) * float(NU_SCALE)
     return mixed, torch.where(on, nu_out, nu0)
 
@@ -372,8 +418,8 @@ def _vco_mix(ds: CF, vco_idx: torch.Tensor):
     dev = ds.re.device
     m = (vco_idx.long()[:, None]
          + torch.arange(k, device=dev)[None, :]) % SAMPLES_PER_BIT
-    c = torch.as_tensor(_VCO_COS, device=dev)[m]
-    s = torch.as_tensor(_VCO_SIN, device=dev)[m]
+    cos, sin = _vco_tables(dev)
+    c, s = cos[m], sin[m]
     return CF(ds.re * c, ds.im * s), ((vco_idx.long() + k) % 8).to(torch.int32)
 
 
@@ -384,8 +430,29 @@ def _vco_pattern(vco_idx: torch.Tensor):
     dev = vco_idx.device
     m8 = (vco_idx.long()[:, None]
           + torch.arange(128, device=dev)[None, :]) % SAMPLES_PER_BIT
-    return (torch.as_tensor(_VCO_COS, device=dev)[m8],
-            torch.as_tensor(_VCO_SIN, device=dev)[m8])
+    cos, sin = _vco_tables(dev)
+    return cos[m8], sin[m8]
+
+
+@device_table(maxsize=16)
+def _ema_tables(a: float, l: int, c: int, dev: torch.device):
+    """:func:`_const_ema_trajectory`'s float64 host tables for decay
+    ``a``, chunks of ``l`` groups and ``c`` chunks, rounded to float32 on
+    ``dev``: the in-chunk [L, L] triangle (transposed), the [C, C]
+    chunk-carry matrix, a^(l*c) per chunk and a^(k+1) per lane."""
+    k = np.arange(l)
+    tri_t = np.where(k[:, None] <= k[None, :],
+                     np.power(a, np.maximum(k[None, :] - k[:, None], 0)),
+                     0.0).astype(np.float32)
+    cc = np.arange(c)
+    dec_l = float(a) ** l
+    inter = np.where(cc[:, None] > cc[None, :],
+                     np.power(dec_l, np.maximum(cc[:, None] - 1 - cc[None, :],
+                                                0)),
+                     0.0).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (
+        tri_t, inter, np.power(dec_l, cc).astype(np.float32),
+        np.power(a, k + 1).astype(np.float32)))
 
 
 def _const_ema_trajectory(b: torch.Tensor, a: float, init: torch.Tensor,
@@ -406,21 +473,10 @@ def _const_ema_trajectory(b: torch.Tensor, a: float, init: torch.Tensor,
     c = -(-g // l)
     bt = F.pad(b, (0, 0, 0, c * l - g)).reshape(*lead, c, l, p
                                                 ).transpose(-1, -2)
-    k = np.arange(l)
-    tri_t = np.where(k[:, None] <= k[None, :],
-                     np.power(a, np.maximum(k[None, :] - k[:, None], 0)),
-                     0.0).astype(np.float32)
-    local = bt @ torch.as_tensor(tri_t, device=dev)        # [..., C, P, L]
-    cc = np.arange(c)
-    dec_l = float(a) ** l
-    inter = np.where(cc[:, None] > cc[None, :],
-                     np.power(dec_l, np.maximum(cc[:, None] - 1 - cc[None, :],
-                                                0)),
-                     0.0).astype(np.float32)
-    carry_b = torch.as_tensor(inter, device=dev) @ local[..., -1]  # [..., C, P]
-    pw_c = torch.as_tensor(np.power(dec_l, cc).astype(np.float32), device=dev)
+    tri_t, inter, pw_c, pw = _ema_tables(float(a), l, c, dev)
+    local = bt @ tri_t                                      # [..., C, P, L]
+    carry_b = inter @ local[..., -1]                        # [..., C, P]
     carries = pw_c[:, None] * init[..., None, :] + carry_b
-    pw = torch.as_tensor(np.power(a, k + 1).astype(np.float32), device=dev)
     traj = pw * carries[..., None] + local                 # [..., C, P, L]
     return traj.transpose(-1, -2).reshape(*lead, c * l, p)[..., :g, :]
 
@@ -583,10 +639,8 @@ def sync_correlate(window_buf: torch.Tensor) -> torch.Tensor:
     +/-1/0. One dilated float32 convolution: the sums are of at most 65
     terms of +/-1, exact in float32 (and in TF32)."""
     max_bits = window_buf.shape[1] - (FEC_BITS - 1)
-    sync = torch.as_tensor(_SYNC, dtype=torch.float32,
-                           device=window_buf.device)
     corr = F.conv1d(window_buf.to(torch.float32)[:, None, :],
-                    sync.view(1, 1, -1), dilation=80)
+                    _sync_taps(window_buf.device), dilation=80)
     return corr[:, 0, :max_bits].to(torch.int32)
 
 
@@ -664,14 +718,14 @@ def _front_manual(iq: CF, states: BpskState, tun: np.ndarray, mode: str,
     dev = iq.re.device
     m = rate // DOWN_SAMPLE_RATE
     t_len = iq.shape[-1]
-    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    taps = _ds_taps(dev)
     if mode == "static":
         mixed, tu_phase = _tuner_mix(iq, states.tu_phase,
                                      tuple(float(t) for t in tun), rate)
         ds, ds_tail = polyphase_decimate(mixed, taps, m, states.ds_tail,
                                          gain=HOWARD_FUDGE_FACTOR)
         return ds, ds_tail, None, tu_phase
-    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
+    tu = _host_vector(tuple(tunings_to_nu(tun).tolist()), torch.int64, dev)
     if mode == "general":
         mixed, tu_phase = _tuner_full_mix(iq, states.tu_phase, tu, rate)
         ds, ds_tail = polyphase_decimate(mixed, taps, m, states.ds_tail,
@@ -710,7 +764,7 @@ def _front_dofft(iq: CF, states: BpskState, track_high: torch.Tensor,
     feed, _centres, ft_state = fft_tuner_blocks(
         CF(iq.re.reshape(s, -1, samples), iq.im.reshape(s, -1, samples)),
         states.fft_tuner, track_high)
-    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    taps = _ds_taps(dev)
     ones = torch.ones((s, 128), dtype=torch.float32, device=dev)
     if fuse_mf:
         vco_cos, vco_sin = _vco_pattern(states.vco_idx)
@@ -745,7 +799,8 @@ def _front_dispatch(iq: CF, states: BpskState, tun: np.ndarray,
                                             fuse_mf)
     x_m, tail_m, mft_m, ph_m = _front_manual(
         iq, states, tun, mode[len("mixed:"):], rate, fuse_mf)
-    auto = torch.as_tensor(dofft, device=iq.re.device)
+    auto = _host_vector(tuple(np.asarray(dofft, bool).tolist()), torch.bool,
+                        iq.re.device)
 
     def sel(a, b):
         return torch.where(auto.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
@@ -771,10 +826,6 @@ def _post_batch(ds: CF, states: BpskState, tu_phase: torch.Tensor,
                                       states.mf_tail)
     return _post_mf_batch(mf, states, tu_phase, ds_tail, mf_tail, vco_idx,
                           ft_state, t_len, max_hits, compat_scan)
-
-
-def _mf_taps(dev) -> torch.Tensor:
-    return torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev)
 
 
 def _post_mf_batch(mf: CF, states: BpskState, tu_phase: torch.Tensor,
@@ -845,11 +896,10 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     dev = iq.re.device
     tun = _block_tunings(iq, cfg, tunings)
     _warn_compat_scan(cfg, dev)
-    flags = np.broadcast_to(np.asarray(
-        cfg.dofft if dofft is None else dofft, bool), (s,)).copy()
-    high = torch.as_tensor(np.broadcast_to(np.asarray(
-        cfg.track_high if track_high is None else track_high, bool), (s,)
-    ).copy(), device=dev)
+    flags = np.asarray(_flags(cfg.dofft if dofft is None else dofft, s))
+    high = _host_vector(_flags(
+        cfg.track_high if track_high is None else track_high, s),
+        torch.bool, dev)
     mode = mix_mode_for(tun, cfg.rate, flags)
     fuse_mf = (cfg.fuse_mf and not cfg.compat_scan
                and mode in ("dofft", "pattern", "mixed:pattern"))
@@ -864,6 +914,141 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
                               cfg.max_hits_per_block)
     return _post_batch(x, states, tu_phase, ds_tail, ft_state, t_len,
                        cfg.max_hits_per_block, cfg.compat_scan)
+
+
+# the kernel wrappers the step calls, whose launch counters replays add to
+_KERNELS = (mix_decimate, mix_decimate_mf, timing_recover_batch)
+
+
+class BpskGraphStep:
+    """:func:`bpsk_block_batch` for a caller that runs it on the same
+    shapes and tunings block after block (``TelemetryStage``), replayed
+    from captured CUDA graphs: one graph launch a block in place of the
+    step's ~100 launches. The kernels, their order and their arithmetic
+    are the eager step's, so the outputs and state are bit for bit the
+    same, in every front-end mode (tests/test_torch_graph_step.py).
+
+    A call takes :func:`bpsk_block_batch`'s arguments and a ``slot``, the
+    index of the block's outputs among those the caller still holds. The
+    key ``(shape, device, cfg, tunings, dofft, track_high)`` selects the
+    graphs: the first block of a key runs eagerly (it loads the kernel
+    library, builds the convolution's plan and uploads the key's tables),
+    later blocks capture a graph for each (slot, state set) on first use
+    and replay it after. A new key drops the old graphs. Steps off a
+    card, with ``cfg.compat_scan``, or at a slot outside ``[0, slots)``
+    run eagerly. ``last`` names what the latest call did: "replay",
+    "capture" (a new graph, then its replay) or "eager".
+
+    The step holds, for its key, every cached device table the key's
+    step reads (:func:`~jsdr_tpu_torch.runtime.device.holding`): a
+    graph keeps no tensor alive, so a table that a cache evicted could
+    otherwise go back to the allocator while a graph still reads it.
+
+    State is never written in place: the graphs read one of two static
+    state sets and write the other, and a call returns the set it wrote.
+    A state that is neither set (a fresh one, a checkpoint's, a caller's)
+    is first copied into the first. So a returned state stays valid until
+    the block after the next one, and a caller that keeps the state from
+    before a block can run the block again from it (the Session's retry).
+    A block's outputs live in the memory of its slot's graph, which the
+    next replay of that graph overwrites: the caller gives each block it
+    still holds a slot of its own. A replay that has run adds the kernels
+    its graph launches to their wrappers' ``launches`` counters, as the
+    eager step would.
+    """
+
+    def __init__(self, slots: int):
+        self.slots = slots
+        self.last: str | None = None
+        self._key = None
+        self._graphable = False
+        self._graphs: dict = {}      # (slot, set read) -> _capture's
+        self._sets: tuple = ()       # the two static BpskState sets
+        self._iq: CF | None = None   # the static [S, T] input
+        self._tables: dict = {}      # the key's device tables (holding)
+
+    def __call__(self, iq: CF, cfg: BpskConfig, states: BpskState,
+                 tunings=None, dofft=None, track_high=None, slot: int = 0
+                 ) -> Tuple[BpskBlockOut, BpskState]:
+        def vec(x):
+            return None if x is None else tuple(np.asarray(x).ravel().tolist())
+
+        key = (tuple(iq.shape), iq.re.device, cfg, vec(tunings), vec(dofft),
+               vec(track_high))
+        step = functools.partial(bpsk_block_batch, cfg=cfg, tunings=tunings,
+                                 dofft=dofft, track_high=track_high)
+        if key != self._key:
+            self._key = key
+            self._graphable = (iq.re.device.type == "cuda"
+                               and not cfg.compat_scan)
+            self._graphs, self._sets, self._iq = {}, (), None
+            self._tables = {}
+        elif self._graphable and 0 <= slot < self.slots:
+            return self._replay(iq, step, self._source(states), slot)
+        self.last = "eager"
+        with holding(self._tables):
+            return step(iq, states=states)
+
+    def _source(self, states: BpskState) -> int:
+        """Which static set the step reads: the set ``states`` is, else
+        the first, after ``states`` is copied into it."""
+        if not self._sets:
+            self._sets = tuple(_map_state(torch.empty_like, states)
+                               for _ in range(2))
+        for i, st in enumerate(self._sets):
+            if states is st:
+                return i
+        for d, x in zip(tree_leaves(self._sets[0]), tree_leaves(states)):
+            d.copy_(x)
+        return 0
+
+    def _replay(self, iq: CF, step, src: int, slot: int):
+        if self._iq is None:
+            self._iq = CF(*(torch.empty(x.shape, dtype=x.dtype,
+                                        device=x.device) for x in iq))
+        self._iq.re.copy_(iq.re)
+        self._iq.im.copy_(iq.im)
+        dst = self._sets[1 - src]
+        entry = self._graphs.get((slot, src))
+        new = entry is None
+        if new:
+            entry = self._capture(step, self._sets[src], dst)
+            self._graphs[(slot, src)] = entry
+        graph, out, launches = entry
+        graph.replay()
+        for fn, n in zip(_KERNELS, launches):
+            fn.launches += n
+        self.last = "capture" if new else "replay"
+        return out, dst
+
+    def _capture(self, step, src: BpskState, dst: BpskState):
+        """A graph of the step from ``src`` and the static input, ending
+        in copies of the new state into ``dst`` (nothing runs yet), its
+        outputs, and the launches of each of :data:`_KERNELS` in it (the
+        wrappers' counters are left as they were: a capture runs
+        nothing).
+
+        The garbage collector is off while the graph captures: a
+        collection could free another graph (a dropped stage's, in a
+        reference cycle), whose memory goes back to the card with a call
+        that a capture forbids."""
+        before = [fn.launches for fn in _KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with holding(self._tables), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                out, new = step(self._iq, states=src)
+                for d, x in zip(tree_leaves(dst), tree_leaves(new)):
+                    d.copy_(x)
+        finally:
+            if collecting:
+                gc.enable()
+            launches = [fn.launches - n for fn, n in zip(_KERNELS, before)]
+            for fn, n in zip(_KERNELS, before):
+                fn.launches = n
+        return graph, out, launches
 
 
 class WaterfallOut(NamedTuple):
@@ -924,10 +1109,10 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
         out, new_states = bpsk_block_batch(iq, cfg, states, tun)
         return _waterfall_out(wf, mx, idx, cfg.rate), out, new_states
     _warn_compat_scan(cfg, dev)
-    tu = torch.as_tensor(tunings_to_nu(tun), dtype=torch.int64, device=dev)
+    tu = _host_vector(tuple(tunings_to_nu(tun).tolist()), torch.int64, dev)
     cos_pat, sin_pat = _nco_pattern(states.tu_phase, tu, cfg.rate)
     tu_phase = _nco_advance(states.tu_phase, tu, cfg.rate, t_len)
-    taps = torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
+    taps = _ds_taps(dev)
     wf, mx, idx, ds, ds_tail = spectrum_front_fused(
         iq, n, cos_pat, sin_pat, taps, cfg.decim, states.ds_tail,
         gain=HOWARD_FUDGE_FACTOR, window=window)

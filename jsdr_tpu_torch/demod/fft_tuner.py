@@ -28,7 +28,6 @@ matmuls, a 7-step roll); only the values are the contract.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -36,6 +35,7 @@ import torch
 
 from ..ops.cplx import CF
 from ..ops.mxu_fft import fft_cf
+from ..runtime.device import device_table
 
 # FUNcubeBPSKDemod.java:399-402; copied from jsdr_tpu/demod/fft_tuner.py
 # (that module imports jax); tests/test_torch_constants.py holds them equal
@@ -152,7 +152,7 @@ def tuner_recurrence(state: FftTunerState, ave: torch.Tensor,
     return new, torch.stack(centres, dim=1)
 
 
-@functools.lru_cache(maxsize=8)
+@device_table(maxsize=8)
 def _idft_slice_mats(samples: int, device: torch.device) -> torch.Tensor:
     """The reference's constant iDFT of a spectrum that is zero outside
     bins 0..203 (host float64, rounded to float32), stacked as

@@ -136,9 +136,8 @@ def _decimate_with_halo(feed: CF, ds_tail: CF, mesh: Mesh, *, m: int):
     is0 = (mesh.axis_index("sp") == 0)[:, None, None]
     pre = CF(*(torch.where(is0, tail[None], mesh.ring(x[..., -n_tail:], "sp"))
                for x, tail in ((feed.re, ds_tail.re), (feed.im, ds_tail.im))))
-    taps = torch.as_tensor(B.DS_FILTER, dtype=torch.float32,
-                           device=feed.re.device)
-    ds, _ = polyphase_decimate(feed, taps, m, pre, gain=B.HOWARD_FUDGE_FACTOR)
+    ds, _ = polyphase_decimate(feed, B._ds_taps(feed.re.device), m, pre,
+                               gain=B.HOWARD_FUDGE_FACTOR)
     new_tail = CF(mesh.from_last(feed.re[..., -n_tail:], "sp"),
                   mesh.from_last(feed.im[..., -n_tail:], "sp"))
     return ds, new_tail
@@ -168,8 +167,7 @@ def _sync_correlate_slice(w: torch.Tensor, q0: int, n_q: int) -> torch.Tensor:
     L >= 80*(q0 + n_q + 64). Returns [S, 80*n_q] int32 (sums of +-1,
     exact)."""
     seg = w[:, 80 * q0:80 * (q0 + n_q + 64)]
-    sync = torch.as_tensor(B._SYNC, dtype=torch.float32, device=w.device)
-    corr = F.conv1d(seg[:, None, :], sync.view(1, 1, -1), dilation=80)
+    corr = F.conv1d(seg[:, None, :], B._sync_taps(w.device), dilation=80)
     return corr[:, 0].to(torch.int32)
 
 

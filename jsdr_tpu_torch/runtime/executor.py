@@ -29,8 +29,11 @@ one span a stage and ``publish:audio-frame``; inside them every
 ``drain.readback`` (every host wait on the card) and ``drain.fec``. The
 counters are ``session.blocks``, ``session.retries``, ``drain.runs``
 (drains with blocks pending), ``drain.hits`` (windows decoded),
-``drain.good`` and ``drain.failed``. Spans after the last block (the
-source's end, the final flush) carry block n, the number of blocks.
+``drain.good``, ``drain.failed``, and one of ``telemetry.graph_replays``,
+``telemetry.graph_captures`` and ``telemetry.graph_eager`` for each
+telemetry step (a replayed CUDA graph, a new one, or eager launches).
+Spans after the last block (the source's end, the final flush) carry
+block n, the number of blocks.
 
 The stages: ``SpectrumStage``, ``TelemetryStage`` (on one device, or
 sharded over a device mesh, :mod:`jsdr_tpu_torch.parallel`),
@@ -315,6 +318,12 @@ class SpectrumStage(Stage):
             session.publish("fft-peak", peak)
 
 
+# what a telemetry stage's step did, counted once a block
+STEP_COUNTERS = {"replay": "telemetry.graph_replays",
+                 "capture": "telemetry.graph_captures",
+                 "eager": "telemetry.graph_eager"}
+
+
 class TelemetryStage(Stage):
     """FUNcubeBPSKDemod + FECDecoder analog; publishes decoded frames.
 
@@ -353,6 +362,14 @@ class TelemetryStage(Stage):
 
     ``device`` (default ``"cuda"``) holds the state — with a mesh, the
     mesh's device; the session must run on it.
+
+    Without a mesh the step is a :class:`~jsdr_tpu_torch.demod.bpsk.
+    BpskGraphStep`: on a card, without ``compat_scan``, blocks replay
+    captured CUDA graphs, a pending block's outputs in its own
+    graph's memory; ``state`` is then one of the step's two static sets,
+    valid until the block after the next one. Each block counts
+    ``telemetry.graph_replays``, ``telemetry.graph_captures`` or
+    ``telemetry.graph_eager`` on the Session's tracer.
     """
 
     name = "telemetry"
@@ -360,7 +377,7 @@ class TelemetryStage(Stage):
     def __init__(self, cfg, tunings=None, dofft=None, track_high=None,
                  sync_every: int = 4, mesh=None, max_hits: int = 4,
                  device: Any = "cuda"):
-        from ..demod.bpsk import bpsk_init_batch
+        from ..demod.bpsk import BpskGraphStep, bpsk_init_batch
         self.cfg = cfg
         self.tunings = (None if tunings is None
                         else [float(t) for t in tunings])
@@ -374,6 +391,8 @@ class TelemetryStage(Stage):
         self.mesh = mesh
         self._pending = []              # un-synced device block outputs
         self._n_blocks = 0
+        # a pending block's outputs each in a graph of their own
+        self._step = BpskGraphStep(slots=self.sync_every)
         if mesh is None:
             self.state = bpsk_init_batch(cfg, self.n, self.device)
             return
@@ -412,17 +431,20 @@ class TelemetryStage(Stage):
                                    target_seconds)
 
     def process(self, block, session: Session):
-        from ..demod.bpsk import bpsk_block_batch
         blocks = _broadcast(block, self.n)
         with session.tracer.span("telemetry.step"):
             if self.mesh is not None:
                 out, self.state = self._sharded(
                     blocks, self.state, self.tunings, dofft=self.dofft,
                     track_high=self.track_high)
+                ran = "eager"
             else:
-                out, self.state = bpsk_block_batch(
+                out, self.state = self._step(
                     blocks, self.cfg, self.state, self.tunings,
-                    dofft=self.dofft, track_high=self.track_high)
+                    dofft=self.dofft, track_high=self.track_high,
+                    slot=len(self._pending))
+                ran = self._step.last
+        session.tracer.count(STEP_COUNTERS[ran])
         self._queue(out, session)
 
     def _queue(self, out, session: Session):
@@ -523,6 +545,7 @@ class SpectrumTelemetryStage(TelemetryStage):
             spec, out, self.state = bpsk_block_batch_spectrum(
                 _broadcast(block, self.n), self.cfg, self.state,
                 self.tunings, window=self.window)
+        session.tracer.count(STEP_COUNTERS["eager"])
         self._spec = spec
         self._queue(out, session)
 

@@ -1,0 +1,382 @@
+"""The telemetry step replayed from CUDA graphs
+(``demod/bpsk.py::BpskGraphStep``, owned by ``TelemetryStage``) and the
+tables the step keeps on its device.
+
+On the CPU the stage runs the eager step and counts it; the tables equal
+the module's; the step's two state sets hand out the right one. Tests
+marked ``card`` run the graphed stage against the eager
+:func:`bpsk_block_batch` on a card, bit for bit, and skip without one:
+``python -m pytest --noconftest -m card tests/test_torch_graph_step.py``
+(this file imports no JAX, so it runs where the JAX package is absent)."""
+
+import functools
+import gc
+
+import numpy as np
+import pytest
+import torch
+
+from jsdr_tpu_torch.demod import bpsk as B
+from jsdr_tpu_torch.io import sources
+from jsdr_tpu_torch.ops.cplx import CF
+from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
+from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
+from jsdr_tpu_torch.runtime.executor import Session, TelemetryStage
+
+RATE = 96000
+TABS = (12000.0, 24000.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _signal(blocks: int) -> np.ndarray:
+    """Frame trains on both tabs' carriers in noise, ``blocks`` 1 s
+    blocks at 96 kS/s."""
+    rng = np.random.default_rng(18)
+    n = blocks * RATE
+    sig = sources.synth_noise(n, amplitude=0.05, seed=18)
+    for i, carrier in enumerate(TABS):
+        pay = rng.integers(0, 256, (3, 256), dtype=np.uint8)
+        tab = sources.synth_bpsk_stream(
+            pay, rate=RATE, carrier_offset=carrier, amplitude=0.3,
+            preamble_bits=300 + 900 * i, seed=i)[:n]
+        sig[:len(tab)] += tab
+    return sig
+
+
+def _block(sig: np.ndarray, b: int, dev) -> CF:
+    x = sig[b * RATE:(b + 1) * RATE]
+    return CF(torch.as_tensor(x.real.copy(), device=dev),
+              torch.as_tensor(x.imag.copy(), device=dev))
+
+
+def _equal(a, b) -> bool:
+    """Two trees of tensors (outputs or states) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        def bits(x):
+            x = x.contiguous()
+            return x.view(torch.uint8) if x.is_floating_point() else x
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(bits(a), bits(b)))
+    return all(_equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+# ---------------------------------------------------------------------------
+# the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fn,table", [
+    (B._ds_taps, B.DS_FILTER), (B._mf_taps, B.DM_FILTER),
+    (lambda dev: B._vco_tables(dev)[0], B._VCO_COS),
+    (lambda dev: B._vco_tables(dev)[1], B._VCO_SIN),
+    (B._sync_taps, B._SYNC)])
+def test_device_tables_equal_the_module_tables_once_per_device(fn, table):
+    dev = torch.device("cpu")
+    got = fn(dev)
+    assert got.dtype == torch.float32 and got.device == dev
+    assert np.array_equal(got.numpy().ravel(), np.asarray(table, np.float32))
+    assert fn(dev) is got
+
+
+def test_host_vectors_upload_once_per_values_dtype_and_device():
+    dev = torch.device("cpu")
+    tu = B._host_vector((120000, 240000), torch.int64, dev)
+    assert tu.dtype == torch.int64 and tu.tolist() == [120000, 240000]
+    assert B._host_vector((120000, 240000), torch.int64, dev) is tu
+    assert B._host_vector((120000, 240000), torch.int32, dev) is not tu
+    assert B._flags(True, 3) == (True, True, True)
+    assert B._flags([True, False], 2) == (True, False)
+
+
+def test_ema_tables_equal_the_float64_host_tables():
+    """``_const_ema_trajectory``'s tables, now kept on the device, hold
+    the float64 host values rounded to float32, as before."""
+    a, l, c = 1.0 - B.BIT_SMOOTH1, 128, 3
+    tri_t, inter, pw_c, pw = B._ema_tables(a, l, c, torch.device("cpu"))
+    k, cc = np.arange(l), np.arange(c)
+    assert np.array_equal(tri_t.numpy()[3, 5], np.float32(a ** 2))
+    assert np.array_equal(tri_t.numpy()[5, 3], np.float32(0.0))
+    assert np.array_equal(inter.numpy()[2, 0], np.float32((a ** l) ** 1))
+    assert np.array_equal(pw_c.numpy(),
+                          np.power(a ** l, cc).astype(np.float32))
+    assert np.array_equal(pw.numpy(), np.power(a, k + 1).astype(np.float32))
+    assert B._ema_tables(a, l, c, torch.device("cpu"))[0] is tri_t
+
+
+def test_device_tables_held_outlive_their_cache():
+    """A holder keeps every table it is given: with the cache emptied,
+    the same call under the holder returns the held tensor, and outside
+    it the cache builds a new one."""
+    from jsdr_tpu_torch.runtime.device import device_table, holding
+    built = []
+
+    @device_table(maxsize=1)
+    def table(n, dev):
+        built.append(n)
+        return torch.arange(n, device=dev)
+
+    dev, held = torch.device("cpu"), {}
+    with holding(held) as tables:
+        assert tables is held
+        a = table(3, dev)
+    assert table(3, dev) is a and built == [3]
+    table(4, dev)
+    table.cache_clear()
+    with holding(held):
+        assert table(3, dev) is a
+    assert table(3, dev) is not a and built == [3, 4, 3]
+    assert list(held.values()) == [a]
+
+
+def test_graph_step_holds_the_tables_of_its_key():
+    """A step's first block holds every bounded table its key reads (the
+    static mode's ramp and its host vectors), so emptying the
+    module caches frees none of them; a new key lets them go."""
+    cfg = B.BpskConfig(rate=RATE)
+    tun = (11900.05, 24000.05)
+    assert B.mix_mode_for(tun, RATE, (False, False)) == "static"
+    step = B.BpskGraphStep(slots=2)
+    sig = _signal(1)
+    blk = _block(sig, 0, "cpu")
+    iq = CF(blk.re.expand(2, -1), blk.im.expand(2, -1))
+    step(iq, cfg, B.bpsk_init_batch(cfg, 2, "cpu"), tun)
+    held = {fn for fn, _ in step._tables}
+    assert {B._static_ramp, B._host_vector} <= held
+    ramp = step._tables[next(k for k in step._tables
+                             if k[0] is B._static_ramp)]
+    B._static_ramp.cache_clear()
+    assert any(v is ramp for v in step._tables.values())
+    step(iq, cfg, B.bpsk_init_batch(cfg, 2, "cpu"), TABS)
+    assert not any(v is ramp for v in step._tables.values())
+
+
+def test_telemetry_stage_on_the_cpu_runs_eagerly_and_counts_it():
+    """Off a card every block takes the eager step, and the Session's
+    tracer counts it; the frames are those of the eager step."""
+    sig = _signal(5)
+    s = Session(source=iter([sig]), block_samples=RATE, device="cpu")
+    got = []
+    s.pubsub.listen(lambda t, v: got.append(v) if t == "telemetry-frame"
+                    else None)
+    stage = TelemetryStage(B.BpskConfig(rate=RATE, fuse_mf=True), TABS,
+                           device="cpu")
+    assert s.run([stage]) == 5
+    c = s.tracer.counters
+    assert (c["telemetry.graph_replays"], c["telemetry.graph_captures"],
+            c["telemetry.graph_eager"]) == (0, 0, 5)
+    assert stage._step.last == "eager"
+    assert got and all(f["ok"] for f in got)
+
+
+def test_graph_step_state_sets():
+    """The set a step reads: the set the state is, else the first after a
+    copy of the state into it."""
+    cfg = B.BpskConfig(rate=RATE)
+    step = B.BpskGraphStep(slots=4)
+    st = B.bpsk_init_batch(cfg, 2, "cpu")
+    st = st._replace(counters=st.counters + 7)
+    assert step._source(st) == 0
+    a, b = step._sets
+    assert _equal(a, st) and a.counters is not st.counters
+    assert step._source(a) == 0 and step._source(b) == 1
+
+
+def test_graph_step_off_a_card_is_the_eager_step():
+    cfg = B.BpskConfig(rate=RATE, fuse_mf=True)
+    step = B.BpskGraphStep(slots=4)
+    st_e = st_g = B.bpsk_init_batch(cfg, 2, "cpu")
+    sig = _signal(3)
+    for b in range(3):
+        blk = _block(sig, b, "cpu")
+        iq = CF(blk.re.expand(2, -1), blk.im.expand(2, -1))
+        out_e, st_e = B.bpsk_block_batch(iq, cfg, st_e, TABS)
+        out_g, st_g = step(iq, cfg, st_g, TABS, slot=b)
+        assert step.last == "eager"
+        assert _equal(out_e, out_g) and _equal(st_e, st_g)
+
+
+# ---------------------------------------------------------------------------
+# the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from jsdr_tpu_torch.runtime.device import require_device
+    return require_device("cuda")
+
+
+class _Checked(TelemetryStage):
+    """A telemetry stage that, at each drain, holds every pending block's
+    outputs to the eager step's (the blocks that differ go to ``bad``: the
+    Session would take an exception here for a fault to retry), and
+    raises once after the step of block ``fail_at``, before the block is
+    queued."""
+
+    def __init__(self, *a, eager_out, fail_at, **kw):
+        super().__init__(*a, **kw)
+        self.eager_out, self.fail_at = eager_out, fail_at
+        self.ids, self.checked, self.bad = [], [], []
+
+    def _queue(self, out, session):
+        block = session.tracer.block
+        if block == self.fail_at:
+            self.fail_at = None
+            raise RuntimeError("injected after the step")
+        self.ids.append(block)
+        super()._queue(out, session)
+
+    def _drain(self, session):
+        ids, self.ids = self.ids, []
+        if len(ids) != len(self._pending):
+            self.bad.append(("pending", ids))
+        for b, out in zip(ids, self._pending):
+            self.checked.append(b)
+            if not _equal(out, self.eager_out[b]):
+                self.bad.append(b)
+        super()._drain(session)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("fuse_mf", [True, False])
+def test_graphed_stage_is_bit_exact_to_the_eager_step(card, tmp_path,
+                                                      fuse_mf):
+    """13 blocks of two tabs through a graphed ``TelemetryStage`` in a
+    Session: every pending block's outputs at its drain and the carried
+    state after every block equal the eager step's bit for bit, through a
+    retry (the step's first attempt at block 6 raises after its replay),
+    a checkpoint saved and loaded after block 7, and a retune at block 10
+    (a new key: eager, then new captures)."""
+    n, fail_at, load_after, retune_at = 13, 6, 7, 10
+    tabs2 = (12000.0, 18000.0)
+    cfg = B.BpskConfig(rate=RATE, fuse_mf=fuse_mf)
+    sig = _signal(n)
+    eager_out, eager_st = [], []
+    st = B.bpsk_init_batch(cfg, 2, card)
+    for b in range(n):
+        blk = _block(sig, b, card)
+        iq = CF(blk.re.expand(2, -1), blk.im.expand(2, -1))
+        out, st = B.bpsk_block_batch(iq, cfg, st,
+                                     TABS if b < retune_at else tabs2)
+        eager_out.append(out)
+        eager_st.append(st)
+
+    s = Session(source=iter([sig]), block_samples=RATE, device=card,
+                checkpoint_path=tmp_path / "st.npz")
+    stage = _Checked(cfg, TABS, device=card, eager_out=eager_out,
+                     fail_at=fail_at)
+    ran = []
+
+    def on_block(topic, b):
+        if topic != "audio-frame":
+            return
+        ran.append(stage._step.last)
+        assert _equal(stage.state, eager_st[b]), f"state after block {b}"
+        if b == load_after:
+            s.save_checkpoint([stage])
+            before = stage.state
+            s.load_checkpoint([stage])
+            assert stage.state is not before
+        if b == retune_at - 1:
+            stage.tunings = list(tabs2)
+
+    s.pubsub.listen(on_block)
+    kernels = (mix_decimate_mf if fuse_mf else mix_decimate,
+               timing_recover_batch)
+    before = [fn.launches for fn in kernels]
+    assert s.run([stage]) == n
+    # a replay counts its graph's kernels: once a step, the retry's too
+    assert [fn.launches - b for fn, b in zip(kernels, before)] == [n + 1] * 2
+    assert stage.bad == [] and stage.checked == list(range(n))
+    assert s.dropped_blocks == {}
+    c = s.tracer.counters
+    assert c["session.retries"] == 1
+    assert ran[0] == "eager" and ran[retune_at] == "eager"
+    assert ran.count("eager") == 2
+    assert c["telemetry.graph_eager"] == 2
+    assert c["telemetry.graph_captures"] >= 4
+    assert c["telemetry.graph_replays"] >= 3
+    assert sum(c[k] for k in ("telemetry.graph_replays",
+                              "telemetry.graph_captures",
+                              "telemetry.graph_eager")) == n + 1
+    assert ran[5] == "replay"
+
+
+@pytest.mark.card
+def test_a_collection_cannot_free_a_graph_inside_a_capture(card,
+                                                          monkeypatch):
+    """Dropped graphed stages in reference cycles are freed only by the
+    garbage collector, and a graph freed inside another graph's capture
+    breaks that capture (CUDA forbids the teardown there: the Session
+    would retry the block). The collector is off while a step captures,
+    so a collection it would make there (here forced wherever it is on)
+    cannot run: a new stage captures its four graphs without a fault."""
+    cfg = B.BpskConfig(rate=RATE, fuse_mf=True)
+    sig = _signal(6)
+
+    def run(stage, blocks):
+        s = Session(source=iter([sig[:blocks * RATE]]), block_samples=RATE,
+                    device=card)
+        assert s.run([stage]) == blocks
+        return s
+
+    held = [TelemetryStage(cfg, TABS, device=card) for _ in range(2)]
+    for st in held:
+        run(st, 4)
+        assert len(st._step._graphs) == 3
+        st.cycle = st
+    del held, st
+    step = B.bpsk_block_batch
+
+    def collecting(*a, **kw):
+        if torch.cuda.is_current_stream_capturing() and gc.isenabled():
+            gc.collect()
+        return step(*a, **kw)
+
+    monkeypatch.setattr(B, "bpsk_block_batch", collecting)
+    s = run(TelemetryStage(cfg, TABS, device=card), 6)
+    gc.collect()
+    c = s.tracer.counters
+    assert c["session.retries"] == 0 and s.dropped_blocks == {}
+    assert c["telemetry.graph_captures"] == 4
+
+
+# a batch in each front-end mode: mode, fuse_mf, tunings, dofft
+MODES = {
+    "pattern": ("pattern", True, TABS, None),
+    "pattern-unfused": ("pattern", False, TABS, None),
+    "general": ("general", False, (11900.0, 12000.5), None),
+    "static": ("static", False, (11900.05, 24000.05), None),
+    "dofft": ("dofft", True, (0.0, 0.0), (True, True)),
+    "dofft-unfused": ("dofft", False, (0.0, 0.0), (True, True)),
+    "mixed:pattern": ("mixed:pattern", True, (0.0, 12000.0), (True, False)),
+    "mixed:general": ("mixed:general", True, (0.0, 11900.0), (True, False)),
+    "mixed:static": ("mixed:static", False, (0.0, 11900.05), (True, False)),
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", list(MODES))
+def test_graph_step_in_each_front_end_mode(card, case):
+    """Each front-end mode through ``BpskGraphStep`` with slots as a stage
+    of ``sync_every`` 2 gives them: bit for bit the eager step's outputs
+    and state, and every mode captures and replays."""
+    mode, fuse_mf, tun, dofft = MODES[case]
+    cfg = B.BpskConfig(rate=RATE, fuse_mf=fuse_mf)
+    assert B.mix_mode_for(tun, RATE, B._flags(
+        False if dofft is None else dofft, 2)) == mode
+    sig = _signal(6)
+    step = B.BpskGraphStep(slots=2)
+    st_e = st_g = B.bpsk_init_batch(cfg, 2, card)
+    ran = []
+    for b in range(6):
+        blk = _block(sig, b, card)
+        iq = CF(blk.re.expand(2, -1), blk.im.expand(2, -1))
+        out_e, st_e = B.bpsk_block_batch(iq, cfg, st_e, tun, dofft=dofft)
+        out_g, st_g = step(iq, cfg, st_g, tun, dofft=dofft, slot=b % 2)
+        ran.append(step.last)
+        assert _equal(out_e, out_g), f"outputs of block {b}"
+        assert _equal(st_e, st_g), f"state after block {b}"
+    assert ran == ["eager", "capture", "capture", "replay", "replay",
+                   "replay"]

@@ -246,7 +246,7 @@ def test_cli_trace_out_writes_spans_and_counters(tmp_path, capsys):
     n = len(_frame_signal()) // 96000
     assert capsys.readouterr().out.strip().endswith(
         f"{n} blocks streamed, frames=1, dropped=none, hits=1, good=1, "
-        "failed=0")
+        f"failed=0, graph replays/captures/eager=0/0/{n}")
     trace = json.loads(out.read_text())
     spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
     assert {"session.frame", "h2d", "telemetry", "telemetry.step",
