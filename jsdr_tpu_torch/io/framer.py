@@ -6,9 +6,15 @@ amortizes dispatch best (typically >= 1 s of samples) — block size is a
 throughput knob, not a latency contract. A compat helper gives the
 0.1 s cadence for display-parity tests.
 
-A copy of :mod:`jsdr_tpu.io.framer` (it imports no jax), numbers and behaviour
-unchanged; tests/test_torch_host_copies.py holds it equal to the
-reference.
+The port of :mod:`jsdr_tpu.io.framer` (it imports no jax): the same
+classes, calls and outputs, byte for byte (tests/test_torch_host_copies.py
+and tests/test_torch_framer_fill.py hold them to the reference's), with
+another buffering. The reference appends every chunk to what it holds, so
+a block of c chunks copies c(c+1)/2 chunks' bytes, each time into a new
+array; here a framer fills one block array of the block's size in place
+and copies each sample once. A yielded block is the caller's: the framer
+starts a new array for the next block and never writes into it again.
+``copied_bytes`` counts the bytes the framer has copied.
 """
 
 from __future__ import annotations
@@ -18,31 +24,59 @@ from typing import Iterator, Optional
 import numpy as np
 
 
-class BlockFramer:
-    """Accumulate arbitrary-size chunks, emit fixed-size blocks."""
+class _BlockFill:
+    """A block array of ``block`` values of ``dtype`` and its fill index."""
 
-    def __init__(self, block_samples: int):
-        self.block = block_samples
-        self._buf = np.zeros(0, np.complex64)
+    dtype: np.dtype
 
-    def push(self, chunk: np.ndarray) -> Iterator[np.ndarray]:
-        self._buf = np.concatenate([self._buf, chunk.astype(np.complex64)])
-        while len(self._buf) >= self.block:
-            out, self._buf = self._buf[:self.block], self._buf[self.block:]
-            yield out
+    def __init__(self, block: int):
+        self.block = block
+        self._blk: Optional[np.ndarray] = None    # the block being filled
+        self._fill = 0
+        self.copied_bytes = 0
+
+    def _push(self, chunk: np.ndarray) -> Iterator[np.ndarray]:
+        """Copy ``chunk`` into the block array; yield it each time it is
+        full. A chunk may end inside a block, complete it, or span
+        several."""
+        pos = 0
+        while pos < len(chunk):
+            if self._blk is None:
+                self._blk = np.empty(self.block, self.dtype)
+            take = min(self.block - self._fill, len(chunk) - pos)
+            self._blk[self._fill:self._fill + take] = chunk[pos:pos + take]
+            self._fill += take
+            pos += take
+            self.copied_bytes += take * self._blk.itemsize
+            if self._fill == self.block:
+                out, self._blk, self._fill = self._blk, None, 0
+                yield out
 
     def flush(self, pad: bool = False) -> Optional[np.ndarray]:
         """Remaining samples, zero-padded to a full block if ``pad``."""
-        if len(self._buf) == 0:
+        if not self._fill:
             return None
-        out = self._buf
-        self._buf = np.zeros(0, np.complex64)
-        if pad and len(out) < self.block:
-            out = np.concatenate([out, np.zeros(self.block - len(out), np.complex64)])
-        return out
+        out, fill = self._blk, self._fill
+        self._blk, self._fill = None, 0
+        if pad:
+            out[fill:] = 0
+            return out
+        return out[:fill]
 
 
-class RawBlockFramer:
+class BlockFramer(_BlockFill):
+    """Accumulate arbitrary-size chunks, emit fixed-size blocks."""
+
+    dtype = np.dtype(np.complex64)
+
+    def __init__(self, block_samples: int):
+        super().__init__(block_samples)
+
+    def push(self, chunk: np.ndarray) -> Iterator[np.ndarray]:
+        return self._push(np.asarray(chunk))
+
+
+class RawBlockFramer(_BlockFill):
     """Frame a raw interleaved-int16 stream into fixed-size blocks.
 
     The raw-mode analog of :class:`BlockFramer`: blocks keep the exact
@@ -50,27 +84,15 @@ class RawBlockFramer:
     device bytes verbatim, and conversion can happen on the TPU
     (io.convert_device.s16_to_cf)."""
 
+    dtype = np.dtype(np.int16)
+
     def __init__(self, block_samples: int, channels: int = 2):
-        self.block = block_samples * channels      # int16 values per block
-        self._buf = np.zeros(0, np.int16)
+        super().__init__(block_samples * channels)   # int16 values per block
 
     def push(self, chunk: np.ndarray) -> Iterator[np.ndarray]:
         chunk = np.asarray(chunk)
         assert chunk.dtype == np.int16, "raw framer wants int16 chunks"
-        self._buf = np.concatenate([self._buf, chunk])
-        while len(self._buf) >= self.block:
-            out, self._buf = self._buf[:self.block], self._buf[self.block:]
-            yield out
-
-    def flush(self, pad: bool = False) -> Optional[np.ndarray]:
-        if len(self._buf) == 0:
-            return None
-        out = self._buf
-        self._buf = np.zeros(0, np.int16)
-        if pad and len(out) < self.block:
-            out = np.concatenate([out, np.zeros(self.block - len(out),
-                                                np.int16)])
-        return out
+        return self._push(chunk)
 
 
 def compat_block_len(rate: int) -> int:

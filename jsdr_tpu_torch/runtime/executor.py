@@ -25,13 +25,18 @@ StageTimers`): each block's top-level spans are ``session.frame`` (waiting
 for the source's chunks and the framer until the block is whole), ``h2d``,
 one span a stage and ``publish:audio-frame``; inside them every
 ``publish:<topic>`` (the listeners' time), ``spectrum.readback``,
-``telemetry.step``, ``telemetry.drain`` and, inside a drain,
+``telemetry.step`` (``spectrum_telemetry.step`` in a
+``SpectrumTelemetryStage``), ``telemetry.drain`` and, inside a drain,
 ``drain.readback`` (every host wait on the card) and ``drain.fec``. The
-counters are ``session.blocks``, ``session.retries``, ``drain.runs``
-(drains with blocks pending), ``drain.hits`` (windows decoded),
-``drain.good``, ``drain.failed``, and one of ``telemetry.graph_replays``,
-``telemetry.graph_captures`` and ``telemetry.graph_eager`` for each
-telemetry step (a replayed CUDA graph, a new one, or eager launches).
+counters are ``session.blocks``, ``session.retries``,
+``session.framer_bytes`` (the bytes the framer copied while each block
+was framed), ``drain.runs`` (drains with blocks pending), ``drain.hits``
+(windows decoded), ``drain.good``, ``drain.failed``, one of
+``telemetry.graph_replays``, ``telemetry.graph_captures`` and
+``telemetry.graph_eager`` for each telemetry step (a replayed CUDA graph,
+a new one, or eager launches), and, for each ``SpectrumTelemetryStage``
+step, one of ``spectrum_telemetry.merged`` (the merged kernel ran) and
+``spectrum_telemetry.staged`` (the staged pair).
 Spans after the last block (the source's end, the final flush) carry
 block n, the number of blocks.
 
@@ -133,12 +138,16 @@ class Session:
         from ..io.framer import BlockFramer, RawBlockFramer
 
         framer = None
+        copied = 0
         for chunk in self.source:
             if framer is None:
                 raw = np.asarray(chunk).dtype == np.int16
                 framer = (RawBlockFramer(self.block_samples, self.channels)
                           if raw else BlockFramer(self.block_samples))
             for block in framer.push(chunk):
+                self.tracer.count("session.framer_bytes",
+                                  framer.copied_bytes - copied)
+                copied = framer.copied_bytes
                 yield raw, block
 
     def run(self, stages: list["Stage"], max_blocks: Optional[int] = None):
@@ -524,7 +533,11 @@ class SpectrumTelemetryStage(TelemetryStage):
     'waterfall-line' (dB-decimated natural-order lines of instance 0) and
     'fft-peak' at each drain, alongside the telemetry topics. Auto-tune
     follows ``cfg.dofft`` / ``cfg.track_high`` (the staged branch), as the
-    reference's stage does."""
+    reference's stage does. The step is eager; its span is
+    ``spectrum_telemetry.step``, and each block counts
+    ``spectrum_telemetry.merged`` or ``spectrum_telemetry.staged`` (as
+    :func:`~jsdr_tpu_torch.demod.bpsk.spectrum_step_merged` rules) beside
+    ``telemetry.graph_eager``."""
 
     name = "spectrum-telemetry"
 
@@ -540,12 +553,19 @@ class SpectrumTelemetryStage(TelemetryStage):
         self._spec = None
 
     def process(self, block, session: Session):
-        from ..demod.bpsk import bpsk_block_batch_spectrum
-        with session.tracer.span("telemetry.step"):
+        from ..demod.bpsk import (bpsk_block_batch_spectrum,
+                                  spectrum_step_merged)
+        tr = session.tracer
+        merged = spectrum_step_merged(
+            self.cfg, block.shape[-1],
+            self.tunings or [self.cfg.tuning] * self.n)
+        with tr.span("spectrum_telemetry.step"):
             spec, out, self.state = bpsk_block_batch_spectrum(
                 _broadcast(block, self.n), self.cfg, self.state,
                 self.tunings, window=self.window)
-        session.tracer.count(STEP_COUNTERS["eager"])
+        tr.count(STEP_COUNTERS["eager"])
+        tr.count("spectrum_telemetry.merged" if merged
+                 else "spectrum_telemetry.staged")
         self._spec = spec
         self._queue(out, session)
 

@@ -8,7 +8,12 @@ spans off nothing is stored and no profiler range opens; under torch's
 profiler the ``jsdr.*`` ranges sit inside the caller's ranges and the
 ``jsdr.clock`` reading maps the spans onto the trace's clock; the ring
 keeps its size; ``telemetry --trace-out`` writes the spans and counters
-and prints the drain's counters."""
+and prints the drain's counters. In the written trace a
+``SpectrumTelemetryStage`` opens ``spectrum_telemetry.step`` (not
+``telemetry.step``) and counts ``spectrum_telemetry.merged`` or
+``.staged`` once a block, a ``TelemetryStage`` still opens
+``telemetry.step``, and ``session.framer_bytes`` counts each block's bytes
+once, the raw and the complex framer's, on whole and ragged chunks."""
 
 import functools
 import json
@@ -23,6 +28,7 @@ from jsdr_tpu_torch.io import sources
 from jsdr_tpu_torch.io.convert import complex_to_s16le
 from jsdr_tpu_torch.runtime import log
 from jsdr_tpu_torch.runtime.executor import (Session, SpectrumStage,
+                                             SpectrumTelemetryStage,
                                              TelemetryStage)
 from jsdr_tpu_torch.runtime.log import StageTimers
 
@@ -257,3 +263,74 @@ def test_cli_trace_out_writes_spans_and_counters(tmp_path, capsys):
     assert counters["session.blocks"] == n and counters["drain.good"] == 1
     assert [e["args"] for e in trace["traceEvents"]
             if e["ph"] == "C"] == [counters]
+
+
+def _written(tracer, path):
+    """The trace ``--trace-out`` writes: (spans as (name, block, parent),
+    counters)."""
+    tracer.write_chrome_trace(path)
+    trace = json.loads(path.read_text())
+    spans = [(e["name"], e["args"]["block"], e["args"]["parent"])
+             for e in trace["traceEvents"] if e["ph"] == "X"]
+    return spans, trace["otherData"]["counters"]
+
+
+def _raw_chunks(blocks: int, block: int, chunk: int, seed: int = 17):
+    raw = np.random.default_rng(seed).integers(
+        -3000, 3000, 2 * block * blocks, dtype=np.int16)
+    return [raw[i:i + 2 * chunk] for i in range(0, len(raw), 2 * chunk)]
+
+
+@pytest.mark.parametrize("block,ran", [(38400, "merged"), (96000, "staged")])
+def test_spectrum_telemetry_step_span_and_counters(tmp_path, block, ran):
+    """At 96 kS/s a 0.4 s block is a whole number of the merged kernel's
+    4-FFT-block chunks and runs it; a 1 s block is not and runs the staged
+    pair. Either way the step's span is ``spectrum_telemetry.step``, once
+    a block inside the stage's span, and ``telemetry.step`` never opens."""
+    blocks = 3
+    s = Session(source=iter(_raw_chunks(blocks, block, 9600)),
+                block_samples=block, device="cpu",
+                timers=StageTimers(spans=True))
+    stage = SpectrumTelemetryStage(BpskConfig(rate=96000, tuning=12000.0),
+                                   sync_every=2, device="cpu")
+    assert s.run([stage]) == blocks
+    spans, counters = _written(s.tracer, tmp_path / "trace.json")
+    steps = [(b, parent) for name, b, parent in spans
+             if name == "spectrum_telemetry.step"]
+    assert steps == [(b, "spectrum-telemetry") for b in range(blocks)]
+    assert not any(name == "telemetry.step" for name, *_ in spans)
+    other = "staged" if ran == "merged" else "merged"
+    assert counters[f"spectrum_telemetry.{ran}"] == blocks
+    assert f"spectrum_telemetry.{other}" not in counters
+    assert counters["telemetry.graph_eager"] == blocks
+    assert counters["session.framer_bytes"] == blocks * block * 4
+
+
+def test_telemetry_stage_keeps_its_step_span(traced, tmp_path):
+    """The 96 kS/s stages open ``telemetry.step`` once a block, as before,
+    and count no ``spectrum_telemetry`` step; their complex chunks are
+    framed at 8 bytes a sample, each once."""
+    s, _, n, _ = traced
+    spans, counters = _written(s.tracer, tmp_path / "trace.json")
+    steps = [(b, parent) for name, b, parent in spans
+             if name == "telemetry.step"]
+    assert steps == [(b, "telemetry") for b in range(n)]
+    assert not any(name.startswith("spectrum_telemetry")
+                   for name in [sp[0] for sp in spans] + list(counters))
+    assert counters["session.framer_bytes"] == n * 96000 * 8
+
+
+@pytest.mark.parametrize("chunk", [9600, 7001, 25000])
+def test_framer_bytes_are_each_blocks_bytes(tmp_path, chunk):
+    """Whole or ragged raw chunks: the framer copies each sample once, so
+    the counter reads the raw blocks' bytes, 4 a sample; the samples of
+    an unfinished last block are not counted."""
+    block, blocks = 9600, 4
+    chunks = _raw_chunks(blocks, block, chunk)
+    chunks.append(np.zeros(2 * 100, np.int16))
+    s = Session(source=iter(chunks), block_samples=block, device="cpu",
+                timers=StageTimers(spans=True))
+    assert s.run([SpectrumStage(9600)]) == blocks
+    _, counters = _written(s.tracer, tmp_path / "trace.json")
+    assert counters["session.blocks"] == blocks
+    assert counters["session.framer_bytes"] == blocks * block * 4
