@@ -63,7 +63,7 @@ from ..ops.mix_decimate import mix_decimate
 from ..ops.mix_decimate_mf import mix_decimate_mf
 from ..ops.spectrum import bin_to_hz
 from ..ops.spectrum_front import sf_geometry, spectrum_front_fused
-from ..ops.spectrum_fused import spectrum_waterfall
+from ..ops.spectrum_fused import spectrum_fused, spectrum_waterfall
 from ..ops.timing_kernel import timing_recover_batch
 from ..runtime.device import device_table, holding
 from ..runtime.state import tree_leaves
@@ -916,28 +916,36 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
                        cfg.max_hits_per_block, cfg.compat_scan)
 
 
-# the kernel wrappers the step calls, whose launch counters replays add to
-_KERNELS = (mix_decimate, mix_decimate_mf, timing_recover_batch)
+# the kernel wrappers the steps call, whose launch counters replays add to
+_KERNELS = (mix_decimate, mix_decimate_mf, timing_recover_batch,
+            spectrum_front_fused, spectrum_fused)
 
 
 class BpskGraphStep:
-    """:func:`bpsk_block_batch` for a caller that runs it on the same
-    shapes and tunings block after block (``TelemetryStage``), replayed
-    from captured CUDA graphs: one graph launch a block in place of the
-    step's ~100 launches. The kernels, their order and their arithmetic
-    are the eager step's, so the outputs and state are bit for bit the
-    same, in every front-end mode (tests/test_torch_graph_step.py).
+    """A telemetry step that its caller runs on the same shapes and
+    tunings block after block, replayed from captured CUDA graphs: one
+    graph launch a block in place of the step's ~100 launches. The step
+    is the ``fn`` the caller passes, called as ``fn(iq, cfg=, states=,
+    tunings=, **kw)`` and returning its outputs, then the new state:
+    :func:`bpsk_block_batch` (the default; ``TelemetryStage``) or
+    :func:`bpsk_block_batch_spectrum` with its ``window``
+    (``SpectrumTelemetryStage``), whose branch, the merged kernel 3 or the
+    staged pair, the key's shape and tunings fix. The kernels, their order
+    and their arithmetic are the eager step's, so the outputs and state
+    are bit for bit the same, in every front-end mode and on either
+    spectrum branch (tests/test_torch_graph_step.py).
 
-    A call takes :func:`bpsk_block_batch`'s arguments and a ``slot``, the
-    index of the block's outputs among those the caller still holds. The
-    key ``(shape, device, cfg, tunings, dofft, track_high)`` selects the
-    graphs: the first block of a key runs eagerly (it loads the kernel
-    library, builds the convolution's plan and uploads the key's tables),
-    later blocks capture a graph for each (slot, state set) on first use
-    and replay it after. A new key drops the old graphs. Steps off a
-    card, with ``cfg.compat_scan``, or at a slot outside ``[0, slots)``
-    run eagerly. ``last`` names what the latest call did: "replay",
-    "capture" (a new graph, then its replay) or "eager".
+    A call takes the step's arguments and a ``slot``, the index of the
+    block's outputs among those the caller still holds. The key ``(shape,
+    device, fn, cfg, tunings, the other arguments)`` (``dofft`` and
+    ``track_high``, or ``window``) selects the graphs: the first block of
+    a key runs eagerly (it loads the kernel library, builds the
+    convolution's plan and uploads the key's tables), later blocks capture
+    a graph for each (slot, state set) on first use and replay it after.
+    A new key drops the old graphs. Steps off a card, with
+    ``cfg.compat_scan``, or at a slot outside ``[0, slots)`` run eagerly.
+    ``last`` names what the latest call did: "replay", "capture" (a new
+    graph, then its replay) or "eager".
 
     The step holds, for its key, every cached device table the key's
     step reads (:func:`~jsdr_tpu_torch.runtime.device.holding`): a
@@ -950,11 +958,12 @@ class BpskGraphStep:
     is first copied into the first. So a returned state stays valid until
     the block after the next one, and a caller that keeps the state from
     before a block can run the block again from it (the Session's retry).
-    A block's outputs live in the memory of its slot's graph, which the
-    next replay of that graph overwrites: the caller gives each block it
-    still holds a slot of its own. A replay that has run adds the kernels
-    its graph launches to their wrappers' ``launches`` counters, as the
-    eager step would.
+    A block's outputs, all that the step returns before the state (the
+    waterfall lines and peaks too, for the spectrum step), live in the
+    memory of its slot's graph, which the next replay of that graph
+    overwrites: the caller gives each block it still holds a slot of its
+    own. A replay that has run adds the kernels its graph launches to
+    their wrappers' ``launches`` counters, as the eager step would.
     """
 
     def __init__(self, slots: int):
@@ -968,15 +977,14 @@ class BpskGraphStep:
         self._tables: dict = {}      # the key's device tables (holding)
 
     def __call__(self, iq: CF, cfg: BpskConfig, states: BpskState,
-                 tunings=None, dofft=None, track_high=None, slot: int = 0
-                 ) -> Tuple[BpskBlockOut, BpskState]:
+                 tunings=None, *, slot: int = 0, fn=None, **kw) -> tuple:
         def vec(x):
             return None if x is None else tuple(np.asarray(x).ravel().tolist())
 
-        key = (tuple(iq.shape), iq.re.device, cfg, vec(tunings), vec(dofft),
-               vec(track_high))
-        step = functools.partial(bpsk_block_batch, cfg=cfg, tunings=tunings,
-                                 dofft=dofft, track_high=track_high)
+        fn = bpsk_block_batch if fn is None else fn
+        key = (tuple(iq.shape), iq.re.device, fn, cfg, vec(tunings),
+               tuple(sorted((k, vec(v)) for k, v in kw.items())))
+        step = functools.partial(fn, cfg=cfg, tunings=tunings, **kw)
         if key != self._key:
             self._key = key
             self._graphable = (iq.re.device.type == "cuda"
@@ -1002,7 +1010,7 @@ class BpskGraphStep:
             d.copy_(x)
         return 0
 
-    def _replay(self, iq: CF, step, src: int, slot: int):
+    def _replay(self, iq: CF, step, src: int, slot: int) -> tuple:
         if self._iq is None:
             self._iq = CF(*(torch.empty(x.shape, dtype=x.dtype,
                                         device=x.device) for x in iq))
@@ -1019,14 +1027,14 @@ class BpskGraphStep:
         for fn, n in zip(_KERNELS, launches):
             fn.launches += n
         self.last = "capture" if new else "replay"
-        return out, dst
+        return (*out, dst)
 
     def _capture(self, step, src: BpskState, dst: BpskState):
         """A graph of the step from ``src`` and the static input, ending
         in copies of the new state into ``dst`` (nothing runs yet), its
-        outputs, and the launches of each of :data:`_KERNELS` in it (the
-        wrappers' counters are left as they were: a capture runs
-        nothing).
+        outputs (what the step returns before the state), and the
+        launches of each of :data:`_KERNELS` in it (the wrappers'
+        counters are left as they were: a capture runs nothing).
 
         The garbage collector is off while the graph captures: a
         collection could free another graph (a dropped stage's, in a
@@ -1039,7 +1047,7 @@ class BpskGraphStep:
         try:
             with holding(self._tables), torch.cuda.graph(
                     graph, capture_error_mode="thread_local"):
-                out, new = step(self._iq, states=src)
+                *out, new = step(self._iq, states=src)
                 for d, x in zip(tree_leaves(dst), tree_leaves(new)):
                     d.copy_(x)
         finally:
@@ -1048,7 +1056,7 @@ class BpskGraphStep:
             launches = [fn.launches - n for fn, n in zip(_KERNELS, before)]
             for fn, n in zip(_KERNELS, before):
                 fn.launches = n
-        return graph, out, launches
+        return graph, tuple(out), launches
 
 
 class WaterfallOut(NamedTuple):

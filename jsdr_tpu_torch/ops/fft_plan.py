@@ -44,6 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..runtime.device import device_table
+
 N2 = 128
 LANES = 32
 REGS = N2 // LANES               # stage 2: values per lane
@@ -145,7 +147,7 @@ class PlanTables(NamedTuple):
     k2map: torch.Tensor
 
 
-@functools.lru_cache(maxsize=16)
+@device_table(maxsize=16)
 def _plan_on(n1: int, device: str) -> PlanTables:
     p = fft_plan(n1)
     host = (p.passes, *_f32(p.ptw), p.perm, *_f32(p.gw), *_f32(p.s2tw),

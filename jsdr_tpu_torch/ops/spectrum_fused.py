@@ -26,12 +26,12 @@ reference's ``precision`` (bf16x3 or HIGHEST MXU passes) and
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..runtime.device import device_table
 from . import _build
 from .cplx import CF
 from .fft_plan import fft_block, fft_plan, plan_tables
@@ -84,7 +84,7 @@ class SpecTables(NamedTuple):
     w2i: torch.Tensor
 
 
-@functools.lru_cache(maxsize=16)
+@device_table(maxsize=16)
 def _tables_on(n: int, window: bool, device: str) -> SpecTables:
     n1 = n // N2
     win = hamming_np(n) if window else np.ones(n, np.float32)

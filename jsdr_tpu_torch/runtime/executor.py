@@ -33,9 +33,10 @@ counters are ``session.blocks``, ``session.retries``,
 was framed), ``drain.runs`` (drains with blocks pending), ``drain.hits``
 (windows decoded), ``drain.good``, ``drain.failed``, one of
 ``telemetry.graph_replays``, ``telemetry.graph_captures`` and
-``telemetry.graph_eager`` for each telemetry step (a replayed CUDA graph,
-a new one, or eager launches), and, for each ``SpectrumTelemetryStage``
-step, one of ``spectrum_telemetry.merged`` (the merged kernel ran) and
+``telemetry.graph_eager`` for each step of a ``TelemetryStage`` or a
+``SpectrumTelemetryStage`` (a replayed CUDA graph, a new one, or eager
+launches), and, for each ``SpectrumTelemetryStage`` step, one of
+``spectrum_telemetry.merged`` (the merged kernel ran) and
 ``spectrum_telemetry.staged`` (the staged pair).
 Spans after the last block (the source's end, the final flush) carry
 block n, the number of blocks.
@@ -533,11 +534,16 @@ class SpectrumTelemetryStage(TelemetryStage):
     'waterfall-line' (dB-decimated natural-order lines of instance 0) and
     'fft-peak' at each drain, alongside the telemetry topics. Auto-tune
     follows ``cfg.dofft`` / ``cfg.track_high`` (the staged branch), as the
-    reference's stage does. The step is eager; its span is
-    ``spectrum_telemetry.step``, and each block counts
+    reference's stage does. The step is its ``BpskGraphStep`` with
+    :func:`~jsdr_tpu_torch.demod.bpsk.bpsk_block_batch_spectrum` as its
+    body: on a card, without ``compat_scan``, blocks replay captured CUDA
+    graphs on either branch, a pending block's outputs and waterfall in
+    its own graph's memory, which the drain reads before that graph runs
+    again. Its span is ``spectrum_telemetry.step``, and each block counts
+    ``telemetry.graph_replays``, ``telemetry.graph_captures`` or
+    ``telemetry.graph_eager`` (what the step did), and
     ``spectrum_telemetry.merged`` or ``spectrum_telemetry.staged`` (as
-    :func:`~jsdr_tpu_torch.demod.bpsk.spectrum_step_merged` rules) beside
-    ``telemetry.graph_eager``."""
+    :func:`~jsdr_tpu_torch.demod.bpsk.spectrum_step_merged` rules)."""
 
     name = "spectrum-telemetry"
 
@@ -560,10 +566,11 @@ class SpectrumTelemetryStage(TelemetryStage):
             self.cfg, block.shape[-1],
             self.tunings or [self.cfg.tuning] * self.n)
         with tr.span("spectrum_telemetry.step"):
-            spec, out, self.state = bpsk_block_batch_spectrum(
+            spec, out, self.state = self._step(
                 _broadcast(block, self.n), self.cfg, self.state,
-                self.tunings, window=self.window)
-        tr.count(STEP_COUNTERS["eager"])
+                self.tunings, slot=len(self._pending),
+                fn=bpsk_block_batch_spectrum, window=self.window)
+        tr.count(STEP_COUNTERS[self._step.last])
         tr.count("spectrum_telemetry.merged" if merged
                  else "spectrum_telemetry.staged")
         self._spec = spec

@@ -1,14 +1,20 @@
-"""The telemetry step replayed from CUDA graphs
-(``demod/bpsk.py::BpskGraphStep``, owned by ``TelemetryStage``) and the
-tables the step keeps on its device.
+"""The telemetry steps replayed from CUDA graphs
+(``demod/bpsk.py::BpskGraphStep``, owned by ``TelemetryStage`` with
+:func:`bpsk_block_batch` and by ``SpectrumTelemetryStage`` with
+:func:`bpsk_block_batch_spectrum`) and the tables the step keeps on its
+device.
 
-On the CPU the stage runs the eager step and counts it; the tables equal
-the module's; the step's two state sets hand out the right one. Tests
-marked ``card`` run the graphed stage against the eager
-:func:`bpsk_block_batch` on a card, bit for bit, and skip without one:
+On the CPU the stages run the eager step and count it; the tables equal
+the module's; the step's two state sets hand out the right one; with a
+stub graph in CUDA's place, the key separates the two step functions and
+a replay counts its kernels' launches. Tests marked ``card`` run the
+graphed stages against the eager :func:`bpsk_block_batch` and
+:func:`bpsk_block_batch_spectrum` on a card, bit for bit, and skip
+without one:
 ``python -m pytest --noconftest -m card tests/test_torch_graph_step.py``
 (this file imports no JAX, so it runs where the JAX package is absent)."""
 
+import contextlib
 import functools
 import gc
 
@@ -21,8 +27,12 @@ from jsdr_tpu_torch.io import sources
 from jsdr_tpu_torch.ops.cplx import CF
 from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
 from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
+from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
+from jsdr_tpu_torch.ops.spectrum_fused import (_tables_on, spectrum_fused,
+                                              waterfall_natural_order)
 from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
-from jsdr_tpu_torch.runtime.executor import Session, TelemetryStage
+from jsdr_tpu_torch.runtime.executor import (Session, SpectrumTelemetryStage,
+                                             TelemetryStage)
 
 RATE = 96000
 TABS = (12000.0, 24000.0)
@@ -44,10 +54,32 @@ def _signal(blocks: int) -> np.ndarray:
     return sig
 
 
-def _block(sig: np.ndarray, b: int, dev) -> CF:
-    x = sig[b * RATE:(b + 1) * RATE]
+@functools.lru_cache(maxsize=None)
+def _station(rate: int, tabs: tuple, seconds: float) -> np.ndarray:
+    """Frame trains on each tab's carrier in noise, ``seconds`` at
+    ``rate``: a frame (~4.33 s) every 4.4 s or so on every tab."""
+    rng = np.random.default_rng(20)
+    n = int(seconds * rate)
+    sig = sources.synth_noise(n, amplitude=0.05, seed=20)
+    for i, carrier in enumerate(tabs):
+        pay = rng.integers(0, 256, (int(seconds // 4.4) + 1, 256),
+                           dtype=np.uint8)
+        tab = sources.synth_bpsk_stream(
+            pay, rate=rate, carrier_offset=carrier, amplitude=0.3,
+            preamble_bits=300 + 900 * i, seed=i)[:n]
+        sig[:len(tab)] += tab
+    return sig
+
+
+def _block(sig: np.ndarray, b: int, dev, size: int = RATE) -> CF:
+    x = sig[b * size:(b + 1) * size]
     return CF(torch.as_tensor(x.real.copy(), device=dev),
               torch.as_tensor(x.imag.copy(), device=dev))
+
+
+def _tabs(blk: CF, n: int = 2) -> CF:
+    """One stream's block as ``n`` tabs' rows, as the stages feed them."""
+    return CF(blk.re.expand(n, -1), blk.im.expand(n, -1))
 
 
 def _equal(a, b) -> bool:
@@ -195,6 +227,136 @@ def test_graph_step_off_a_card_is_the_eager_step():
         assert _equal(out_e, out_g) and _equal(st_e, st_g)
 
 
+class _StubGraph:
+    """``torch.cuda.CUDAGraph`` on the CPU: the capture runs the step's
+    body once, as a capture records it, and a replay runs nothing."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+@pytest.fixture
+def stub_graphs(monkeypatch):
+    @contextlib.contextmanager
+    def graph(g, capture_error_mode=None):
+        yield g
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+
+
+def test_graph_step_key_separates_the_step_functions(stub_graphs):
+    """The step function and its arguments are part of the key: a call
+    with :func:`bpsk_block_batch_spectrum` after graphs of
+    :func:`bpsk_block_batch` on the same shape, config and tunings drops
+    them and runs eagerly once, a changed ``window`` does too, and going
+    back drops the spectrum step's graphs. A (stub) capture of the
+    spectrum step gives its whole output tuple and the state set it wrote,
+    equal to the eager step's."""
+    cfg = B.BpskConfig(rate=RATE)
+    sig = _signal(1)
+    iq = _tabs(_block(sig, 0, "cpu"))
+    st0 = B.bpsk_init_batch(cfg, 2, "cpu")
+    step = B.BpskGraphStep(slots=2)
+    _, st = step(iq, cfg, st0, TABS)
+    assert step.last == "eager"
+    step._graphable = True            # as on a card
+    _, st = step(iq, cfg, st, TABS, slot=0)
+    assert step.last == "capture" and len(step._graphs) == 1
+
+    spec = functools.partial(step, fn=B.bpsk_block_batch_spectrum)
+    want = B.bpsk_block_batch_spectrum(iq, cfg, st, TABS)
+    got = spec(iq, cfg, st, TABS, slot=1)
+    assert step.last == "eager" and step._graphs == {} and step._sets == ()
+    assert len(got) == 3 and _equal(got, want)
+    step._graphable = True
+    want = B.bpsk_block_batch_spectrum(iq, cfg, got[-1], TABS)
+    got = spec(iq, cfg, got[-1], TABS, slot=1)
+    assert step.last == "capture" and list(step._graphs) == [(1, 0)]
+    assert got[-1] is step._sets[1] and _equal(got, want)
+    spec(iq, cfg, got[-1], TABS, window=False, slot=1)
+    assert step.last == "eager" and step._graphs == {}
+    step._graphable = True
+    spec(iq, cfg, st0, TABS, window=False, slot=1)
+    assert step.last == "capture" and len(step._graphs) == 1
+    step(iq, cfg, st0, TABS, slot=0)
+    assert step.last == "eager" and step._graphs == {}
+
+
+@pytest.mark.parametrize("kernel", [spectrum_front_fused, spectrum_fused])
+def test_a_replay_counts_the_spectrum_kernels_launches(stub_graphs, kernel):
+    """Kernel 3's and kernel 4's wrappers are among the step's kernels: a
+    capture leaves their launch counters as they were (it runs nothing),
+    and each replay adds the launches its graph made, as the eager step
+    would. The step here is a stub that launches ``kernel`` once."""
+    assert kernel in B._KERNELS
+
+    def launching(iq, cfg, states, tunings=None, window=True):
+        kernel.launches += 1          # what the kernel's wrapper counts
+        return iq.re.sum(), states._replace(counters=states.counters + 1)
+
+    cfg = B.BpskConfig(rate=RATE)
+    iq = _tabs(_block(_signal(1), 0, "cpu"))
+    st = B.bpsk_init_batch(cfg, 2, "cpu")
+    step = B.BpskGraphStep(slots=2)
+    before = kernel.launches
+    ran = []
+    for b in range(4):
+        _, st = step(iq, cfg, st, TABS, slot=b % 2, fn=launching,
+                     window=True)
+        ran.append(step.last)
+        assert kernel.launches - before == b + 1
+        step._graphable = True        # as on a card
+    assert ran == ["eager", "capture", "capture", "replay"]
+    assert [g.replays for g, _, _ in step._graphs.values()] == [2, 1]
+
+
+def test_graph_step_holds_the_spectrum_tables_of_its_key():
+    """The spectrum step's first block holds the spectrum's window and
+    DFT tables (``spectrum_fused._tables_on``, a bounded cache), so
+    emptying the cache frees none of them."""
+    cfg = B.BpskConfig(rate=RATE)
+    step = B.BpskGraphStep(slots=2)
+    iq = _tabs(_block(_signal(1), 0, "cpu"))
+    step(iq, cfg, B.bpsk_init_batch(cfg, 2, "cpu"), TABS,
+         fn=B.bpsk_block_batch_spectrum, window=True)
+    held = [v for k, v in step._tables.items() if k[0] is _tables_on]
+    assert len(held) == 1
+    _tables_on.cache_clear()
+    assert _tables_on(9600, True, "cpu") is not held[0]
+
+
+def test_spectrum_stage_on_the_cpu_runs_eagerly_and_counts_it():
+    """Off a card ``SpectrumTelemetryStage``'s step is eager every block
+    and counted as such, beside the branch it took; its outputs are the
+    eager :func:`bpsk_block_batch_spectrum`'s."""
+    cfg = B.BpskConfig(rate=RATE)
+    sig = _signal(3)
+    s = Session(source=iter([sig]), block_samples=RATE, device="cpu")
+    stage = SpectrumTelemetryStage(cfg, TABS, sync_every=2, device="cpu")
+    lines = []
+    s.pubsub.listen(lambda t, v: lines.append(v) if t == "waterfall-line"
+                    else None)
+    assert s.run([stage]) == 3
+    c = s.tracer.counters
+    assert (c["telemetry.graph_replays"], c["telemetry.graph_captures"],
+            c["telemetry.graph_eager"]) == (0, 0, 3)
+    assert c["spectrum_telemetry.staged"] == 3
+    assert stage._step.last == "eager"
+    st, want = B.bpsk_init_batch(cfg, 2, "cpu"), []
+    for b in range(3):
+        spec, _, st = B.bpsk_block_batch_spectrum(
+            _tabs(_block(sig, b, "cpu")), cfg, st, TABS)
+        want.append(waterfall_natural_order(spec.wf)[0].numpy())
+    # the drains after blocks 1 and 2 publish those blocks' lines
+    assert len(lines) == 2
+    assert all(np.array_equal(a, b) for a, b in zip(lines, want[1:]))
+    assert _equal(stage.state, st)
+
+
 # ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
@@ -207,16 +369,17 @@ def card():
     return require_device("cuda")
 
 
-class _Checked(TelemetryStage):
+class _CheckedMixin:
     """A telemetry stage that, at each drain, holds every pending block's
-    outputs to the eager step's (the blocks that differ go to ``bad``: the
-    Session would take an exception here for a fault to retry), and
-    raises once after the step of block ``fail_at``, before the block is
-    queued."""
+    outputs (and, with ``eager_spec``, the waterfall the drain publishes)
+    to the eager step's (the blocks that differ go to ``bad``: the Session
+    would take an exception here for a fault to retry), and raises once
+    after the step of block ``fail_at``, before the block is queued."""
 
-    def __init__(self, *a, eager_out, fail_at, **kw):
+    def __init__(self, *a, eager_out, fail_at, eager_spec=None, **kw):
         super().__init__(*a, **kw)
         self.eager_out, self.fail_at = eager_out, fail_at
+        self.eager_spec = eager_spec
         self.ids, self.checked, self.bad = [], [], []
 
     def _queue(self, out, session):
@@ -235,7 +398,18 @@ class _Checked(TelemetryStage):
             self.checked.append(b)
             if not _equal(out, self.eager_out[b]):
                 self.bad.append(b)
+        if (self.eager_spec is not None and ids
+                and not _equal(self._spec, self.eager_spec[ids[-1]])):
+            self.bad.append(("spec", ids[-1]))
         super()._drain(session)
+
+
+class _Checked(_CheckedMixin, TelemetryStage):
+    pass
+
+
+class _CheckedSpectrum(_CheckedMixin, SpectrumTelemetryStage):
+    pass
 
 
 @pytest.mark.card
@@ -380,3 +554,117 @@ def test_graph_step_in_each_front_end_mode(card, case):
         assert _equal(st_e, st_g), f"state after block {b}"
     assert ran == ["eager", "capture", "capture", "replay", "replay",
                    "replay"]
+
+
+# SpectrumTelemetryStage's two branches: rate, block samples, tabs, merged
+SPECTRUM = {
+    "merged-192k": (192000, 921600, (12000.0, 25500.0), True),
+    "staged-96k": (96000, 96000, (12000.0, 24000.0), False),
+}
+TOPICS = ("waterfall-line", "fft-peak", "telemetry-frame",
+          "telemetry-counters")
+
+
+def _same_topic(a, b) -> bool:
+    """Two published values (arrays, tuples, dicts of them) equal."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_topic(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def _spectrum_session(sig, size, dev):
+    """A Session over ``sig`` and the list of the topics it publishes."""
+    s = Session(source=iter([sig]), block_samples=size, device=dev)
+    got = []
+    s.pubsub.listen(lambda t, v: got.append((t, v)) if t in TOPICS
+                    else None)
+    return s, got
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", list(SPECTRUM))
+def test_graphed_spectrum_stage_is_bit_exact_to_the_eager_step(card, case):
+    """12 blocks of two tabs through a graphed ``SpectrumTelemetryStage``
+    (sync_every 4) in a Session, on the merged kernel 3 (192 kS/s in 4.8 s
+    blocks) or the staged pair (96 kS/s in 1 s blocks): every pending
+    block's outputs and the drained block's waterfall at each drain, and
+    the carried state after every block, equal the eager
+    :func:`bpsk_block_batch_spectrum`'s bit for bit, through a retry (the
+    step's first attempt at block 6 raises after its replay); the
+    published 'waterfall-line', 'fft-peak', 'telemetry-frame' and
+    'telemetry-counters' equal those of the same stage with an eager step;
+    and the branch's spectrum kernel counts a launch a step."""
+    rate, size, tabs, merged = SPECTRUM[case]
+    n, fail_at = 12, 6
+    cfg = B.BpskConfig(rate=rate)
+    assert B.spectrum_step_merged(cfg, size, tabs) == merged
+    sig = _station(rate, tabs, n * size / rate)
+    eager_spec, eager_out, eager_st = [], [], []
+    st = B.bpsk_init_batch(cfg, 2, card)
+    for b in range(n):
+        spec, out, st = B.bpsk_block_batch_spectrum(
+            _tabs(_block(sig, b, card, size)), cfg, st, tabs)
+        eager_spec.append(spec)
+        eager_out.append(out)
+        eager_st.append(st)
+
+    s, got = _spectrum_session(sig, size, card)
+    stage = _CheckedSpectrum(cfg, tabs, device=card, eager_out=eager_out,
+                             eager_spec=eager_spec, fail_at=fail_at)
+    ran = []
+
+    def on_block(topic, b):
+        if topic == "audio-frame":
+            ran.append(stage._step.last)
+            assert _equal(stage.state, eager_st[b]), f"state after block {b}"
+
+    s.pubsub.listen(on_block)
+    kernels = (spectrum_front_fused if merged else spectrum_fused,
+               timing_recover_batch)
+    before = [fn.launches for fn in kernels]
+    assert s.run([stage]) == n
+    # a replay counts its graph's kernels: once a step, the retry's too
+    assert [fn.launches - b for fn, b in zip(kernels, before)] == [n + 1] * 2
+    assert stage.bad == [] and stage.checked == list(range(n))
+    assert s.dropped_blocks == {} and s.tracer.counters["session.retries"] == 1
+    assert ran[0] == "eager" and ran.count("eager") == 1
+    assert ran[fail_at] == "replay"
+
+    r, want = _spectrum_session(sig, size, card)
+    eager = SpectrumTelemetryStage(cfg, tabs, device=card)
+    eager._step = B.BpskGraphStep(slots=0)   # every slot outside: eager
+    assert r.run([eager]) == n
+    assert r.tracer.counters["telemetry.graph_eager"] == n
+    assert [t for t, _ in got] == [t for t, _ in want]
+    assert all(_same_topic(a, b) for (_, a), (_, b) in zip(got, want))
+    frames = [v for t, v in got if t == "telemetry-frame"]
+    assert any(f["ok"] for f in frames)
+    assert sum(t == "waterfall-line" for t, _ in got) == n // 4
+
+
+@pytest.mark.card
+def test_spectrum_stage_counts_each_block_once(card):
+    """At 192 kS/s in 4.8 s blocks the stage's step counts each block
+    once: eager at the first, its four captures (a slot and state set
+    each, sync_every 4) inside the first 8 blocks, replays after; every
+    block runs the merged kernel 3."""
+    rate, size, tabs, _ = SPECTRUM["merged-192k"]
+    n = 12
+    sig = _station(rate, tabs, n * size / rate)
+    s = Session(source=iter([sig]), block_samples=size, device=card)
+    stage = SpectrumTelemetryStage(B.BpskConfig(rate=rate), tabs,
+                                   device=card)
+    ran = []
+    s.pubsub.listen(lambda t, v: ran.append(stage._step.last)
+                    if t == "audio-frame" else None)
+    assert s.run([stage]) == n
+    c = s.tracer.counters
+    counts = [c.get(f"telemetry.graph_{k}", 0)
+              for k in ("replays", "captures", "eager")]
+    assert sum(counts) == n and counts == [n - 5, 4, 1]
+    assert all(i < 8 for i, r in enumerate(ran) if r != "replay")
+    assert ran[0] == "eager" and set(ran[8:]) == {"replay"}
+    assert c["spectrum_telemetry.merged"] == n
