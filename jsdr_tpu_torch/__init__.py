@@ -18,7 +18,7 @@ JAX-free host modules it needs (``fec.tables``, ``fec.ref_numpy``,
 the shell's model ``app.tui.TuiModel``) are copies, held equal to the
 reference's by tests/test_torch_host_copies.py.
 
-Ported so far: the telemetry decode path in every tuning mode —
+Ported: the telemetry decode path in every tuning mode —
 ``demod.bpsk.bpsk_block_batch`` (with ``BpskConfig.fuse_mf``, the FFT
 auto-tuner ``demod.fft_tuner``) and ``fec.decoder.fec_decode`` — the
 flagship spectrum + telemetry step ``demod.bpsk.bpsk_block_batch_spectrum``
@@ -26,16 +26,16 @@ with ``ops.spectrum`` (``spectrum_block``, ``spectrum_wide``), the
 AM/NFM/WFM audio demodulator ``demod.am_fm`` (torch ops, no kernel of its
 own) with ``ops.fir``'s band-pass design, the streaming Session
 (``runtime.executor`` with its spectrum, telemetry, demod, audio-sink and
-recorder stages, ``runtime.state``, ``io.convert_device``), the
+recorder stages, ``runtime.state``, ``io.convert_device``, on a card
+its telemetry steps replayed as CUDA graphs by ``runtime.graph``), the
 interactive shell ``app.tui`` (``StageManager`` and ``PipelineThread``
 on a torch device), the ``compat_scan`` per-sample timing path, the
 native IO library ``io.native`` (its own build of the C++ sources), and
 the ``jsdr-tpu-torch`` commands ``spectrum``, ``demod``, ``telemetry``,
 ``synth``, ``record``, ``phase``, ``fir``, ``fcd`` and ``ui`` with
-``--config``. All six TPU kernels of the JAX package have their CUDA
-counterpart. Every single-device module is ported; ROADMAP.md lists what
-is still to port: ``parallel/`` (the device mesh of ``--mesh``,
-``TelemetryStage(mesh=...)`` and the shell's ``StageManager(mesh=...)``).
+``--config``, and ``parallel/`` (the device mesh of ``--mesh``). All six
+TPU kernels of the JAX package have their CUDA counterpart; nothing is
+left to port.
 """
 
 __version__ = "0.1.0"

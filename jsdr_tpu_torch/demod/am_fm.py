@@ -22,7 +22,6 @@ the angle-sum order, the carried phase wraps with a floor-mod equal to
 from __future__ import annotations
 
 import enum
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,6 +29,8 @@ import torch
 
 from ..ops.cplx import CF
 from ..ops.fir import bandpass_weights, fir_apply_streaming
+from ..runtime.device import device_table
+from ..runtime.state import tree_map
 
 TWO_PI = 2.0 * np.pi
 
@@ -94,29 +95,23 @@ def state_from_numpy(st, device: torch.device | str) -> AmFmState:
     """A reference ``jsdr_tpu.demod.am_fm.AmFmState`` whose leaves are
     numpy arrays (``AmFmState.init``, or ``np.asarray`` of a JAX step's
     output) -> this package's state on ``device``."""
-    def t(x):
-        return torch.as_tensor(np.array(x, np.float32), device=device)
-
-    return AmFmState(CF(t(st.fir_tail.re), t(st.fir_tail.im)), t(st.car),
-                     t(st.last_iq))
+    like = AmFmState.init(AmFmConfig(rate=1), "meta")    # the port's types
+    return tree_map(lambda _, x: torch.as_tensor(np.array(x, np.float32),
+                                                 device=device), like, st)
 
 
 def state_to_numpy(st: AmFmState) -> AmFmState:
     """The reverse of :func:`state_from_numpy`: the same tuple structure
     with numpy leaves."""
-    def h(x):
-        return x.cpu().numpy()
-
-    return AmFmState(CF(h(st.fir_tail.re), h(st.fir_tail.im)), h(st.car),
-                     h(st.last_iq))
+    return tree_map(lambda x: x.cpu().numpy(), st)
 
 
-@functools.lru_cache(maxsize=16)
+@device_table(maxsize=16)
 def _weights(ntaps: int, flo, fhi, rate: float, device: torch.device):
     return bandpass_weights(ntaps, flo, fhi, rate, device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_table(maxsize=16)
 def _ramp(n: int, phi: float, device: torch.device) -> torch.Tensor:
     """mod(t*phi, 2pi) for t < n, float64 on the host rounded to float32
     (long streams accumulate no float32 phase error), uploaded once."""

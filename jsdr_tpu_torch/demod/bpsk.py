@@ -46,8 +46,6 @@ indexes directly.
 
 from __future__ import annotations
 
-import functools
-import gc
 import warnings
 from typing import NamedTuple, Tuple
 
@@ -63,10 +61,10 @@ from ..ops.mix_decimate import mix_decimate
 from ..ops.mix_decimate_mf import mix_decimate_mf
 from ..ops.spectrum import bin_to_hz
 from ..ops.spectrum_front import sf_geometry, spectrum_front_fused
-from ..ops.spectrum_fused import spectrum_fused, spectrum_waterfall
+from ..ops.spectrum_fused import spectrum_waterfall
 from ..ops.timing_kernel import timing_recover_batch
-from ..runtime.device import device_table, holding
-from ..runtime.state import tree_leaves
+from ..runtime.device import device_table
+from ..runtime.state import tree_map
 from .fft_tuner import FftTunerState, fft_tuner_blocks, fft_tuner_init
 
 # Constants copied from jsdr_tpu/demod/bpsk.py:52-107 (that module imports
@@ -130,27 +128,27 @@ _SYNC = np.asarray(SYNC_VECTOR, dtype=np.int32)     # [65] of +/-1
 # The tables on a device, uploaded once per device and kept: a step makes
 # no pageable host-to-device copy (which waits for the card, and which a
 # CUDA graph cannot capture). Callers must not write to them. Tables that
-# follow a stage's tunings and shapes sit in bounded caches
-# (:func:`~jsdr_tpu_torch.runtime.device.device_table`): a graphed step
-# holds those its graphs read (:class:`BpskGraphStep`).
+# follow a stage's tunings and shapes sit in bounded caches; a graphed
+# step holds those its graphs read (:func:`~jsdr_tpu_torch.runtime.device.
+# device_table`, :class:`~jsdr_tpu_torch.runtime.graph.GraphStep`).
 
-@functools.lru_cache(maxsize=None)
+@device_table(maxsize=None)
 def _ds_taps(dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(DS_FILTER, dtype=torch.float32, device=dev)
 
 
-@functools.lru_cache(maxsize=None)
+@device_table(maxsize=None)
 def _mf_taps(dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(DM_FILTER, dtype=torch.float32, device=dev)
 
 
-@functools.lru_cache(maxsize=None)
+@device_table(maxsize=None)
 def _vco_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return (torch.as_tensor(_VCO_COS, device=dev),
             torch.as_tensor(_VCO_SIN, device=dev))
 
 
-@functools.lru_cache(maxsize=None)
+@device_table(maxsize=None)
 def _sync_taps(dev: torch.device) -> torch.Tensor:
     """The sync vector as float32 [1, 1, 65] conv1d weights."""
     return torch.as_tensor(_SYNC, dtype=torch.float32, device=dev
@@ -243,15 +241,7 @@ def bpsk_init_batch(cfg: BpskConfig, n_streams: int,
 
 def bpsk_init(cfg: BpskConfig, device: torch.device | str) -> BpskState:
     """Fresh state for one stream (no batch axis)."""
-    return _map_state(lambda x: x[0], bpsk_init_batch(cfg, 1, device))
-
-
-def _map_state(fn, st: BpskState) -> BpskState:
-    return BpskState(
-        fn(st.tu_phase), CF(fn(st.ds_tail.re), fn(st.ds_tail.im)),
-        fn(st.vco_idx), CF(fn(st.mf_tail.re), fn(st.mf_tail.im)),
-        TimingState(*map(fn, st.timing)), fn(st.ring), fn(st.counters),
-        FftTunerState(*map(fn, st.fft_tuner)))
+    return tree_map(lambda x: x[0], bpsk_init_batch(cfg, 1, device))
 
 
 def state_from_numpy(st, device: torch.device | str) -> BpskState:
@@ -259,21 +249,16 @@ def state_from_numpy(st, device: torch.device | str) -> BpskState:
     numpy arrays (``bpsk_init_batch``, or ``np.asarray`` of a JAX step's
     output) -> this package's state on ``device``. Fields correspond by
     name and order, so a checkpoint moves between the packages."""
-    def t(x):
-        return torch.as_tensor(np.array(x), device=device)
-
-    return BpskState(
-        t(st.tu_phase), CF(t(st.ds_tail.re), t(st.ds_tail.im)),
-        t(st.vco_idx), CF(t(st.mf_tail.re), t(st.mf_tail.im)),
-        TimingState(*map(t, st.timing)), t(st.ring), t(st.counters),
-        FftTunerState(*map(t, st.fft_tuner)))
+    like = bpsk_init_batch(BpskConfig(), 0, "meta")    # the port's types
+    return tree_map(lambda _, x: torch.as_tensor(np.array(x), device=device),
+                    like, st)
 
 
 def state_to_numpy(st: BpskState) -> BpskState:
     """The reverse of :func:`state_from_numpy`: the same tuple structure
     with numpy leaves (``jax.tree.unflatten`` with the reference's
     structure rebuilds its ``BpskState``)."""
-    return _map_state(lambda x: x.cpu().numpy(), st)
+    return tree_map(lambda x: x.cpu().numpy(), st)
 
 
 # ---------------------------------------------------------------------------
@@ -916,149 +901,6 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
                        cfg.max_hits_per_block, cfg.compat_scan)
 
 
-# the kernel wrappers the steps call, whose launch counters replays add to
-_KERNELS = (mix_decimate, mix_decimate_mf, timing_recover_batch,
-            spectrum_front_fused, spectrum_fused)
-
-
-class BpskGraphStep:
-    """A telemetry step that its caller runs on the same shapes and
-    tunings block after block, replayed from captured CUDA graphs: one
-    graph launch a block in place of the step's ~100 launches. The step
-    is the ``fn`` the caller passes, called as ``fn(iq, cfg=, states=,
-    tunings=, **kw)`` and returning its outputs, then the new state:
-    :func:`bpsk_block_batch` (the default; ``TelemetryStage``) or
-    :func:`bpsk_block_batch_spectrum` with its ``window``
-    (``SpectrumTelemetryStage``), whose branch, the merged kernel 3 or the
-    staged pair, the key's shape and tunings fix. The kernels, their order
-    and their arithmetic are the eager step's, so the outputs and state
-    are bit for bit the same, in every front-end mode and on either
-    spectrum branch (tests/test_torch_graph_step.py).
-
-    A call takes the step's arguments and a ``slot``, the index of the
-    block's outputs among those the caller still holds. The key ``(shape,
-    device, fn, cfg, tunings, the other arguments)`` (``dofft`` and
-    ``track_high``, or ``window``) selects the graphs: the first block of
-    a key runs eagerly (it loads the kernel library, builds the
-    convolution's plan and uploads the key's tables), later blocks capture
-    a graph for each (slot, state set) on first use and replay it after.
-    A new key drops the old graphs. Steps off a card, with
-    ``cfg.compat_scan``, or at a slot outside ``[0, slots)`` run eagerly.
-    ``last`` names what the latest call did: "replay", "capture" (a new
-    graph, then its replay) or "eager".
-
-    The step holds, for its key, every cached device table the key's
-    step reads (:func:`~jsdr_tpu_torch.runtime.device.holding`): a
-    graph keeps no tensor alive, so a table that a cache evicted could
-    otherwise go back to the allocator while a graph still reads it.
-
-    State is never written in place: the graphs read one of two static
-    state sets and write the other, and a call returns the set it wrote.
-    A state that is neither set (a fresh one, a checkpoint's, a caller's)
-    is first copied into the first. So a returned state stays valid until
-    the block after the next one, and a caller that keeps the state from
-    before a block can run the block again from it (the Session's retry).
-    A block's outputs, all that the step returns before the state (the
-    waterfall lines and peaks too, for the spectrum step), live in the
-    memory of its slot's graph, which the next replay of that graph
-    overwrites: the caller gives each block it still holds a slot of its
-    own. A replay that has run adds the kernels its graph launches to
-    their wrappers' ``launches`` counters, as the eager step would.
-    """
-
-    def __init__(self, slots: int):
-        self.slots = slots
-        self.last: str | None = None
-        self._key = None
-        self._graphable = False
-        self._graphs: dict = {}      # (slot, set read) -> _capture's
-        self._sets: tuple = ()       # the two static BpskState sets
-        self._iq: CF | None = None   # the static [S, T] input
-        self._tables: dict = {}      # the key's device tables (holding)
-
-    def __call__(self, iq: CF, cfg: BpskConfig, states: BpskState,
-                 tunings=None, *, slot: int = 0, fn=None, **kw) -> tuple:
-        def vec(x):
-            return None if x is None else tuple(np.asarray(x).ravel().tolist())
-
-        fn = bpsk_block_batch if fn is None else fn
-        key = (tuple(iq.shape), iq.re.device, fn, cfg, vec(tunings),
-               tuple(sorted((k, vec(v)) for k, v in kw.items())))
-        step = functools.partial(fn, cfg=cfg, tunings=tunings, **kw)
-        if key != self._key:
-            self._key = key
-            self._graphable = (iq.re.device.type == "cuda"
-                               and not cfg.compat_scan)
-            self._graphs, self._sets, self._iq = {}, (), None
-            self._tables = {}
-        elif self._graphable and 0 <= slot < self.slots:
-            return self._replay(iq, step, self._source(states), slot)
-        self.last = "eager"
-        with holding(self._tables):
-            return step(iq, states=states)
-
-    def _source(self, states: BpskState) -> int:
-        """Which static set the step reads: the set ``states`` is, else
-        the first, after ``states`` is copied into it."""
-        if not self._sets:
-            self._sets = tuple(_map_state(torch.empty_like, states)
-                               for _ in range(2))
-        for i, st in enumerate(self._sets):
-            if states is st:
-                return i
-        for d, x in zip(tree_leaves(self._sets[0]), tree_leaves(states)):
-            d.copy_(x)
-        return 0
-
-    def _replay(self, iq: CF, step, src: int, slot: int) -> tuple:
-        if self._iq is None:
-            self._iq = CF(*(torch.empty(x.shape, dtype=x.dtype,
-                                        device=x.device) for x in iq))
-        self._iq.re.copy_(iq.re)
-        self._iq.im.copy_(iq.im)
-        dst = self._sets[1 - src]
-        entry = self._graphs.get((slot, src))
-        new = entry is None
-        if new:
-            entry = self._capture(step, self._sets[src], dst)
-            self._graphs[(slot, src)] = entry
-        graph, out, launches = entry
-        graph.replay()
-        for fn, n in zip(_KERNELS, launches):
-            fn.launches += n
-        self.last = "capture" if new else "replay"
-        return (*out, dst)
-
-    def _capture(self, step, src: BpskState, dst: BpskState):
-        """A graph of the step from ``src`` and the static input, ending
-        in copies of the new state into ``dst`` (nothing runs yet), its
-        outputs (what the step returns before the state), and the
-        launches of each of :data:`_KERNELS` in it (the wrappers'
-        counters are left as they were: a capture runs nothing).
-
-        The garbage collector is off while the graph captures: a
-        collection could free another graph (a dropped stage's, in a
-        reference cycle), whose memory goes back to the card with a call
-        that a capture forbids."""
-        before = [fn.launches for fn in _KERNELS]
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with holding(self._tables), torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
-                *out, new = step(self._iq, states=src)
-                for d, x in zip(tree_leaves(dst), tree_leaves(new)):
-                    d.copy_(x)
-        finally:
-            if collecting:
-                gc.enable()
-            launches = [fn.launches - n for fn, n in zip(_KERNELS, before)]
-            for fn, n in zip(_KERNELS, before):
-                fn.launches = n
-        return graph, tuple(out), launches
-
-
 class WaterfallOut(NamedTuple):
     wf: torch.Tensor         # [T//n, S, G, 128] dB max-decimated lines
     peak_freq: torch.Tensor  # [S, T//n] Hz (signed, reference truncation)
@@ -1133,9 +975,9 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
 def bpsk_block(iq: CF, cfg: BpskConfig, state: BpskState,
                tuning=None) -> Tuple[BpskBlockOut, BpskState]:
     """One stream's block [T] through the chain (unbatched state)."""
-    states = _map_state(lambda x: x[None], state)
+    states = tree_map(lambda x: x[None], state)
     tunings = None if tuning is None else np.asarray([tuning])
     out, new_states = bpsk_block_batch(CF(iq.re[None], iq.im[None]), cfg,
                                        states, tunings)
     return (BpskBlockOut(*(x[0] for x in out)),
-            _map_state(lambda x: x[0], new_states))
+            tree_map(lambda x: x[0], new_states))

@@ -10,6 +10,7 @@ import functools
 import numpy as np
 import torch
 
+from ..runtime.device import device_table
 from .tables import (
     ALPHA_TO, INDEX_OF, METTAB, NN, NROOTS, RS_POLY, SCRAMBLER, SYMS,
     SYNC_BITS,
@@ -67,14 +68,13 @@ def rs_table() -> np.ndarray:
     return tab
 
 
-_CACHE: dict = {}
+@device_table(maxsize=None)
+def viterbi_table_on(device: torch.device) -> torch.Tensor:
+    """Kernel A's ``VITERBI_TABLE`` on ``device``."""
+    return torch.as_tensor(VITERBI_TABLE, device=device)
 
 
-def device_table(name: str, device: torch.device) -> torch.Tensor:
-    """``VITERBI_TABLE`` ("viterbi") or :func:`rs_table` ("rs") on
-    ``device``, uploaded on its first use there and kept."""
-    key = (name, str(device))
-    if key not in _CACHE:
-        host = VITERBI_TABLE if name == "viterbi" else rs_table()
-        _CACHE[key] = torch.as_tensor(host, device=device)
-    return _CACHE[key]
+@device_table(maxsize=None)
+def rs_table_on(device: torch.device) -> torch.Tensor:
+    """Kernel B's :func:`rs_table` on ``device``."""
+    return torch.as_tensor(rs_table(), device=device)

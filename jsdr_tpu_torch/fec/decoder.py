@@ -95,6 +95,7 @@ def _fec_check_lanes(vitdec: torch.Tensor, raw: torch.Tensor) -> FecResult:
                    nerr.reshape(n_batch, RSBLOCKS), reencode)
 
 
+@_build.counts_launches
 def fec_check(vitdec: torch.Tensor, raw: torch.Tensor) -> FecResult:
     """Kernel B: [B, 320] Viterbi bytes and the [B, 5200] uint8 channel
     frames they came from -> FecResult over [B] (descramble + demux, both
@@ -117,7 +118,7 @@ def fec_check(vitdec: torch.Tensor, raw: torch.Tensor) -> FecResult:
     rs_errors = torch.empty((n, RSBLOCKS), dtype=torch.int32, device=dev)
     rc = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        tab = _device.device_table("rs", dev)
+        tab = _device.rs_table_on(dev)
         lib = _build.kernels()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -128,9 +129,6 @@ def fec_check(vitdec: torch.Tensor, raw: torch.Tensor) -> FecResult:
         _build.check(code, "fec_check")
         fec_check.launches += 1
     return FecResult(payload, ok, rs_errors, rc)
-
-
-fec_check.launches = 0
 
 
 def fec_decode(raw: torch.Tensor) -> FecResult:

@@ -96,6 +96,7 @@ def encode_frame(payload: torch.Tensor) -> torch.Tensor:
     return encode_bytes(seq)
 
 
+@_build.counts_launches
 def encode_fec40(payload: torch.Tensor) -> torch.Tensor:
     """Batched encode: [..., 256] uint8 payload -> [..., 5200] symbols, the
     counterpart of ``jsdr_tpu.fec.encode.encode_fec40``.
@@ -116,7 +117,7 @@ def encode_fec40(payload: torch.Tensor) -> torch.Tensor:
     elif dev.type in ("cpu", "cuda"):
         frame = torch.empty((n, SYMPBLOCK), dtype=torch.uint8, device=dev)
         if n:
-            tab = _device.device_table("rs", dev)
+            tab = _device.rs_table_on(dev)
             lib = _build.kernels()
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
@@ -127,9 +128,6 @@ def encode_fec40(payload: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(f"encode_fec40: unsupported device {dev}")
     return frame.reshape(*lead, SYMPBLOCK)
-
-
-encode_fec40.launches = 0
 
 
 def encode_frame_affine(payload: torch.Tensor) -> torch.Tensor:

@@ -157,6 +157,7 @@ def decode_rs_codeword(data: torch.Tensor):
     return corrected, n_err.to(torch.int32)
 
 
+@_build.counts_launches
 def decode_rs(data: torch.Tensor):
     """Batched RS decode: [..., 255] uint8 -> (corrected [..., 255] uint8,
     n_errors [...] int32), the counterpart of ``jsdr_tpu.fec.rs.decode_rs``.
@@ -178,7 +179,7 @@ def decode_rs(data: torch.Tensor):
         corrected = torch.empty_like(flat)
         n_err = torch.empty(n, dtype=torch.int32, device=dev)
         if n:
-            tab = _device.device_table("rs", dev)
+            tab = _device.rs_table_on(dev)
             lib = _build.kernels()
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
@@ -190,9 +191,6 @@ def decode_rs(data: torch.Tensor):
     else:
         raise ValueError(f"decode_rs: unsupported device {dev}")
     return corrected.reshape(*lead, NN), n_err.reshape(lead)
-
-
-decode_rs.launches = 0
 
 
 def _popc(mask: torch.Tensor) -> torch.Tensor:

@@ -113,6 +113,7 @@ def deinterleave(raw: torch.Tensor) -> torch.Tensor:
     return raw[:, torch.as_tensor(_DEINT_IDX, device=raw.device)]
 
 
+@_build.counts_launches
 def viterbi27_bytes(x: torch.Tensor) -> torch.Tensor:
     """[B, 5132] soft symbols, or [B, 5200] channel frames (deinterleaved
     on the way in), uint8 -> [B, 320] decoded bytes.
@@ -136,7 +137,7 @@ def viterbi27_bytes(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"viterbi27_bytes: unsupported device {dev}")
     out = torch.empty((n, _OUT_BYTES), dtype=torch.uint8, device=dev)
     if n:
-        tab = _device.device_table("viterbi", dev)
+        tab = _device.viterbi_table_on(dev)
         lib = _build.kernels()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -146,9 +147,6 @@ def viterbi27_bytes(x: torch.Tensor) -> torch.Tensor:
         _build.check(code, "viterbi27_bytes")
         viterbi27_bytes.launches += 1
     return out
-
-
-viterbi27_bytes.launches = 0
 
 
 def viterbi27_bits(symbols: torch.Tensor) -> torch.Tensor:

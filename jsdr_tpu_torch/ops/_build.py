@@ -11,7 +11,8 @@ time: the CPU tests import every module on machines without ``nvcc``.
 
 Each C entry point enqueues on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception.
+exception. Each Python wrapper that launches one counts its launches
+(:func:`counts_launches`).
 """
 
 from __future__ import annotations
@@ -63,6 +64,20 @@ _SIGNATURES = {
     # payload, tab, frame, n_frames, stream
     "jsdr_fec_encode": [_P] * 3 + [_I, _P],
 }
+
+
+# every kernel wrapper that counts its launches, in the order defined
+LAUNCH_COUNTERS: list = []
+
+
+def counts_launches(fn):
+    """Register the kernel wrapper ``fn``, which adds each launch it makes
+    to ``fn.launches`` (from 0 here): :data:`LAUNCH_COUNTERS` lists it, so
+    a replayed CUDA graph adds the launches it holds to their wrappers'
+    counters (:class:`~jsdr_tpu_torch.runtime.graph.GraphStep`)."""
+    fn.launches = 0
+    LAUNCH_COUNTERS.append(fn)
+    return fn
 
 
 def _digest() -> str:

@@ -164,6 +164,7 @@ def _fir_rows(x: torch.Tensor, taps: torch.Tensor, stride: int, n: int):
     return _fir_valid(x, taps, stride)[..., :n]
 
 
+@_build.counts_launches
 def mix_decimate(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
                  taps: torch.Tensor, m: int, tail: CF, gain: float):
     """Mix + decimate over [S, T] stream rows. ``cos_pat``/``sin_pat``:
@@ -208,6 +209,3 @@ def mix_decimate(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
     _build.check(code, "mix_decimate")
     mix_decimate.launches += 1
     return CF(yr, yi), CF(tr, ti)
-
-
-mix_decimate.launches = 0

@@ -127,6 +127,7 @@ def _mix_dec_mf_walk(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
             CF(*(q.contiguous() for q in new_mf)))
 
 
+@_build.counts_launches
 def mix_decimate_mf(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
                     taps: torch.Tensor, m: int, tail: CF,
                     vco_cos: torch.Tensor, vco_sin: torch.Tensor,
@@ -184,6 +185,3 @@ def mix_decimate_mf(iq: CF, cos_pat: torch.Tensor, sin_pat: torch.Tensor,
     _build.check(code, "mix_decimate_mf")
     mix_decimate_mf.launches += 1
     return CF(yr, yi), CF(tr, ti), CF(mr, mi)
-
-
-mix_decimate_mf.launches = 0

@@ -122,6 +122,7 @@ def _thread_max(tile: torch.Tensor, aligned: bool) -> torch.Tensor:
     return per.amax()
 
 
+@_build.counts_launches
 def psd_waterfall(spec: CF, width: int = 960):
     """[B, N] spectrum (a CF pair of float32 planes) -> (psd_db [B, N] f32,
     line [B, width] u8). ``width`` must divide N.
@@ -156,6 +157,3 @@ def psd_waterfall(spec: CF, width: int = 960):
         _build.check(code, "psd_waterfall")
         psd_waterfall.launches += 1
     return db, line
-
-
-psd_waterfall.launches = 0

@@ -46,6 +46,7 @@ def spectrum_front_ref(iq: CF, n: int, cos_pat: torch.Tensor,
     return wf, mx, idx, ds, new_tail
 
 
+@_build.counts_launches
 def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
                          sin_pat: torch.Tensor, taps: torch.Tensor, m: int,
                          tail: CF, gain: float = 1.0, window: bool = True,
@@ -103,9 +104,6 @@ def spectrum_front_fused(iq: CF, n: int, cos_pat: torch.Tensor,
     _build.check(code, "spectrum_front_fused")
     spectrum_front_fused.launches += 1
     return wf, mx, idx, CF(yr, yi), CF(tr, ti)
-
-
-spectrum_front_fused.launches = 0
 
 
 def static_smem_bytes(ranks: int = 1) -> int:

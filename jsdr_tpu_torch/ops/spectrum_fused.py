@@ -225,6 +225,7 @@ def _spectrum_wf(iq: CF, n: int, window: bool, q: int, cluster: bool):
     return wf, mx, idx
 
 
+@_build.counts_launches
 def spectrum_fused(iq: CF, n: int, window: bool = True,
                    with_peaks: bool = False, cluster: bool = False):
     """Fused window + FFT + PSD (+ peak search) over contiguous time rows.
@@ -238,9 +239,6 @@ def spectrum_fused(iq: CF, n: int, window: bool = True,
     permuted argmax [T//n, S] int32), computed in the kernel."""
     psd, mx, idx = _spectrum_wf(iq, n, window, 1, cluster)
     return (psd, mx, idx) if with_peaks else psd
-
-
-spectrum_fused.launches = 0
 
 
 def spectrum_waterfall(iq: CF, n: int, window: bool = True,

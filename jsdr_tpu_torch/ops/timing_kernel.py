@@ -162,6 +162,7 @@ def _timing_chunked_ref(mf_re, mf_im, e_ema, peak, new_peak, e_out, last_iq,
             torch.stack([li, lq], dim=1))
 
 
+@_build.counts_launches
 def timing_recover_batch(mf_re, mf_im, e_ema, peak, new_peak, e_out,
                          last_iq, *, smooth1: float, smooth2: float,
                          gate: float):
@@ -223,6 +224,3 @@ def timing_recover_batch(mf_re, mf_im, e_ema, peak, new_peak, e_out,
     _build.check(code, "timing_recover_batch")
     timing_recover_batch.launches += 1
     return valid, bit, ema_f, peak_f, new_peak_f, e_out_f, last_f
-
-
-timing_recover_batch.launches = 0

@@ -67,6 +67,7 @@ from ..demod.fft_tuner import (FftTunerState, tuner_emit, tuner_precompute,
 from ..ops.cplx import CF, from_complex
 from ..ops.fir import fir_apply_streaming, polyphase_decimate
 from ..ops.spectrum import spectrum_block
+from ..runtime.state import tree_map
 from .mesh import Mesh
 
 
@@ -86,10 +87,6 @@ def _front_manual_local(iq: CF, nu0: torch.Tensor, tu: torch.Tensor,
     on = (tu > 0)[None, :, None]
     return CF(iq.re * torch.where(on, c, 1.0),
               iq.im * torch.where(on, s, 1.0))
-
-
-def _map_tuner(fn, *states: FftTunerState) -> FftTunerState:
-    return FftTunerState(*(fn(*leaves) for leaves in zip(*states)))
 
 
 def _front_dofft_local(iq: CF, ft0: FftTunerState, track_high: torch.Tensor,
@@ -112,16 +109,16 @@ def _front_dofft_local(iq: CF, ft0: FftTunerState, track_high: torch.Tensor,
     n_sp = mesh.shape["sp"]
 
     def rec(st: FftTunerState):
-        flat = _map_tuner(lambda x: x.reshape(k_loc * s), st)
+        flat = tree_map(lambda x: x.reshape(k_loc * s), st)
         out, centres = tuner_recurrence(flat, ave, bin_pos, max_bin, end)
-        return _map_tuner(lambda x: x.reshape(k_loc, s), out), centres
+        return tree_map(lambda x: x.reshape(k_loc, s), out), centres
 
-    st_in = _map_tuner(lambda x: x[None].expand(k_loc, s), ft0)  # rank 0's
+    st_in = tree_map(lambda x: x[None].expand(k_loc, s), ft0)  # rank 0's
     for r in range(n_sp - 1):
         st_out, _ = rec(st_in)
-        st_in = _map_tuner(
+        st_in = tree_map(
             lambda cur, new: torch.where(sp == r + 1, new, cur), st_in,
-            _map_tuner(lambda x: mesh.ring(x, "sp", wrap=False), st_out))
+            tree_map(lambda x: mesh.ring(x, "sp", wrap=False), st_out))
     st_fin, centres = rec(st_in)
     feed = tuner_emit(spec, centres)
     return CF(feed.re.reshape(k_loc, s, t_loc),
@@ -394,7 +391,7 @@ def _telemetry_local(iq: CF, states: B.BpskState, tu: torch.Tensor,
     if front_mode in ("dofft", "mixed"):
         feed_f, ft_fin = _front_dofft_local(iq, states.fft_tuner, track_high,
                                             mesh, rate=rate)
-        ft_last = _map_tuner(lambda x: mesh.from_last(x, "sp"), ft_fin)
+        ft_last = tree_map(lambda x: mesh.from_last(x, "sp"), ft_fin)
     if front_mode == "dofft":
         feed, tu_phase, ft_state = feed_f, states.tu_phase, ft_last
     elif front_mode == "mixed":                # per-stream selection
@@ -402,8 +399,8 @@ def _telemetry_local(iq: CF, states: B.BpskState, tu: torch.Tensor,
         feed = CF(torch.where(sel, feed_f.re, feed.re),
                   torch.where(sel, feed_f.im, feed.im))
         tu_phase = torch.where(dofft, states.tu_phase, tu_phase)
-        ft_state = _map_tuner(lambda new, old: torch.where(dofft, new, old),
-                              ft_last, states.fft_tuner)
+        ft_state = tree_map(lambda new, old: torch.where(dofft, new, old),
+                            ft_last, states.fft_tuner)
 
     ds, ds_tail = _decimate_with_halo(feed, states.ds_tail, mesh, m=m)
     if not compat_scan:

@@ -60,6 +60,7 @@ import torch
 
 from ..ops.cplx import CF
 from ..runtime.device import require_device
+from .graph import GraphStep
 from .log import Logger, StageTimers, set_latest
 from .pubsub import PubSub
 from .state import load_state, save_state
@@ -373,9 +374,9 @@ class TelemetryStage(Stage):
     ``device`` (default ``"cuda"``) holds the state — with a mesh, the
     mesh's device; the session must run on it.
 
-    Without a mesh the step is a :class:`~jsdr_tpu_torch.demod.bpsk.
-    BpskGraphStep`: on a card, without ``compat_scan``, blocks replay
-    captured CUDA graphs, a pending block's outputs in its own
+    Without a mesh the step runs through a :class:`~jsdr_tpu_torch.
+    runtime.graph.GraphStep`: on a card, without ``compat_scan``, blocks
+    replay captured CUDA graphs, a pending block's outputs in its own
     graph's memory; ``state`` is then one of the step's two static sets,
     valid until the block after the next one. Each block counts
     ``telemetry.graph_replays``, ``telemetry.graph_captures`` or
@@ -387,7 +388,7 @@ class TelemetryStage(Stage):
     def __init__(self, cfg, tunings=None, dofft=None, track_high=None,
                  sync_every: int = 4, mesh=None, max_hits: int = 4,
                  device: Any = "cuda"):
-        from ..demod.bpsk import BpskGraphStep, bpsk_init_batch
+        from ..demod.bpsk import bpsk_init_batch
         self.cfg = cfg
         self.tunings = (None if tunings is None
                         else [float(t) for t in tunings])
@@ -401,9 +402,11 @@ class TelemetryStage(Stage):
         self.mesh = mesh
         self._pending = []              # un-synced device block outputs
         self._n_blocks = 0
-        # a pending block's outputs each in a graph of their own
-        self._step = BpskGraphStep(slots=self.sync_every)
         if mesh is None:
+            # a pending block's outputs each in a graph of their own
+            self._step = GraphStep(
+                self.sync_every, graphable=(self.device.type == "cuda"
+                                            and not cfg.compat_scan))
             self.state = bpsk_init_batch(cfg, self.n, self.device)
             return
         from ..parallel.sharded import sharded_telemetry_step
@@ -441,25 +444,33 @@ class TelemetryStage(Stage):
                                    target_seconds)
 
     def process(self, block, session: Session):
-        blocks = _broadcast(block, self.n)
-        with session.tracer.span("telemetry.step"):
-            if self.mesh is not None:
-                out, self.state = self._sharded(
-                    blocks, self.state, self.tunings, dofft=self.dofft,
-                    track_high=self.track_high)
-                ran = "eager"
-            else:
-                out, self.state = self._step(
-                    blocks, self.cfg, self.state, self.tunings,
-                    dofft=self.dofft, track_high=self.track_high,
-                    slot=len(self._pending))
+        from ..demod.bpsk import bpsk_block_batch
+        self._run_step(session, "telemetry.step", bpsk_block_batch, block,
+                       dofft=self.dofft, track_high=self.track_high)
+
+    def _run_step(self, session: Session, span: str, fn, block, **kw):
+        """The step ``fn`` on the block's rows (one an instance) in the
+        tracer's ``span``, through the graph step (on a mesh, the sharded
+        step, eager, in its place): keeps the new state, counts what the
+        step did and queues its outputs."""
+        rows = _broadcast(block, self.n)
+        with session.tracer.span(span):
+            if self.mesh is None:
+                *out, self.state = self._step(
+                    fn, rows, self.state, slot=len(self._pending),
+                    cfg=self.cfg, tunings=self.tunings, **kw)
                 ran = self._step.last
+            else:
+                *out, self.state = self._sharded(rows, self.state,
+                                                 self.tunings, **kw)
+                ran = "eager"
         session.tracer.count(STEP_COUNTERS[ran])
         self._queue(out, session)
 
     def _queue(self, out, session: Session):
-        """Keep a block's outputs; drain every ``sync_every`` blocks."""
-        self._pending.append(out)
+        """Keep a block's telemetry outputs (the last of the step's
+        ``out``); drain every ``sync_every`` blocks."""
+        self._pending.append(out[-1])
         self._n_blocks += 1
         if self._n_blocks % self.sync_every == 0:
             self.finish(session)
@@ -534,7 +545,7 @@ class SpectrumTelemetryStage(TelemetryStage):
     'waterfall-line' (dB-decimated natural-order lines of instance 0) and
     'fft-peak' at each drain, alongside the telemetry topics. Auto-tune
     follows ``cfg.dofft`` / ``cfg.track_high`` (the staged branch), as the
-    reference's stage does. The step is its ``BpskGraphStep`` with
+    reference's stage does. The step is its ``GraphStep`` with
     :func:`~jsdr_tpu_torch.demod.bpsk.bpsk_block_batch_spectrum` as its
     body: on a card, without ``compat_scan``, blocks replay captured CUDA
     graphs on either branch, a pending block's outputs and waterfall in
@@ -561,20 +572,17 @@ class SpectrumTelemetryStage(TelemetryStage):
     def process(self, block, session: Session):
         from ..demod.bpsk import (bpsk_block_batch_spectrum,
                                   spectrum_step_merged)
-        tr = session.tracer
         merged = spectrum_step_merged(
             self.cfg, block.shape[-1],
             self.tunings or [self.cfg.tuning] * self.n)
-        with tr.span("spectrum_telemetry.step"):
-            spec, out, self.state = self._step(
-                _broadcast(block, self.n), self.cfg, self.state,
-                self.tunings, slot=len(self._pending),
-                fn=bpsk_block_batch_spectrum, window=self.window)
-        tr.count(STEP_COUNTERS[self._step.last])
-        tr.count("spectrum_telemetry.merged" if merged
-                 else "spectrum_telemetry.staged")
-        self._spec = spec
-        self._queue(out, session)
+        self._run_step(session, "spectrum_telemetry.step",
+                       bpsk_block_batch_spectrum, block, window=self.window)
+        session.tracer.count("spectrum_telemetry.merged" if merged
+                             else "spectrum_telemetry.staged")
+
+    def _queue(self, out, session: Session):
+        self._spec = out[0]          # the waterfall the next drain shows
+        super()._queue(out, session)
 
     def _drain(self, session: Session):
         from ..ops.spectrum_fused import waterfall_natural_order

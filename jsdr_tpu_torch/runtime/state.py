@@ -51,6 +51,18 @@ def _rebuild(like: Any, leaves: Iterator) -> Any:
     return next(leaves)
 
 
+def tree_map(fn, *trees: Any) -> Any:
+    """The structure of ``trees[0]`` with ``fn`` of each of its leaves and
+    the leaves in the same place of the other trees in their place (as
+    ``jax.tree.map``). The other trees must hold as many leaves, in
+    containers of any type (another package's NamedTuples)."""
+    leaves = [tree_leaves(t) for t in trees]
+    if len({len(x) for x in leaves}) > 1:
+        raise ValueError("tree_map: the trees hold "
+                         f"{[len(x) for x in leaves]} leaves")
+    return _rebuild(trees[0], map(fn, *leaves))
+
+
 def _host(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()

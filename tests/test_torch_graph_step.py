@@ -1,13 +1,14 @@
 """The telemetry steps replayed from CUDA graphs
-(``demod/bpsk.py::BpskGraphStep``, owned by ``TelemetryStage`` with
+(``runtime/graph.py::GraphStep``, owned by ``TelemetryStage`` with
 :func:`bpsk_block_batch` and by ``SpectrumTelemetryStage`` with
 :func:`bpsk_block_batch_spectrum`) and the tables the step keeps on its
 device.
 
 On the CPU the stages run the eager step and count it; the tables equal
-the module's; the step's two state sets hand out the right one; with a
-stub graph in CUDA's place, the key separates the two step functions and
-a replay counts its kernels' launches. Tests marked ``card`` run the
+the module's and come back from a holder; the step's two state sets hand
+out the right one; with a stub graph in CUDA's place, the key separates
+the two step functions and a replay counts the launches of every
+registered kernel wrapper. Tests marked ``card`` run the
 graphed stages against the eager :func:`bpsk_block_batch` and
 :func:`bpsk_block_batch_spectrum` on a card, bit for bit, and skip
 without one:
@@ -17,22 +18,39 @@ without one:
 import contextlib
 import functools
 import gc
+import importlib
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import jsdr_tpu_torch
+from jsdr_tpu_torch.demod import am_fm
 from jsdr_tpu_torch.demod import bpsk as B
+from jsdr_tpu_torch.fec import _device as fec_tables
+from jsdr_tpu_torch.fec.decoder import fec_check
+from jsdr_tpu_torch.fec.encode import encode_fec40
+from jsdr_tpu_torch.fec.rs import decode_rs
+from jsdr_tpu_torch.fec.viterbi import viterbi27_bytes
 from jsdr_tpu_torch.io import sources
+from jsdr_tpu_torch.ops import _build
 from jsdr_tpu_torch.ops.cplx import CF
 from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
 from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
+from jsdr_tpu_torch.ops.psd_waterfall import psd_waterfall
 from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
 from jsdr_tpu_torch.ops.spectrum_fused import (_tables_on, spectrum_fused,
                                               waterfall_natural_order)
 from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
+from jsdr_tpu_torch.runtime.device import holding
 from jsdr_tpu_torch.runtime.executor import (Session, SpectrumTelemetryStage,
                                              TelemetryStage)
+from jsdr_tpu_torch.runtime.graph import GraphStep
 
 RATE = 96000
 TABS = (12000.0, 24000.0)
@@ -160,6 +178,29 @@ def test_device_tables_held_outlive_their_cache():
     assert list(held.values()) == [a]
 
 
+@pytest.mark.parametrize("table,args,want", [
+    (fec_tables.viterbi_table_on, (), fec_tables.VITERBI_TABLE),
+    (fec_tables.rs_table_on, (), fec_tables.rs_table()),
+    (am_fm._weights, (21, 500, 1500, 44100.0), None),
+    (am_fm._ramp, (64, 0.25), None)])
+def test_fec_and_audio_tables_come_back_from_the_holder(table, args, want):
+    """Kernel A's and B's tables and the audio demod's band-pass weights
+    and carrier ramp are device tables: under a holder each comes back
+    from the holder's dict, also after its cache was emptied, which
+    outside the holder builds a new one. The FEC tables hold the
+    module's host tables."""
+    dev, held = torch.device("cpu"), {}
+    with holding(held):
+        a = table(*args, dev)
+    assert held == {(table, (*args, dev)): a}
+    if want is not None:
+        assert np.array_equal(a.numpy(), want)
+    table.cache_clear()
+    with holding(held):
+        assert table(*args, dev) is a
+    assert table(*args, dev) is not a
+
+
 def test_graph_step_holds_the_tables_of_its_key():
     """A step's first block holds every bounded table its key reads (the
     static mode's ramp and its host vectors), so emptying the
@@ -167,18 +208,20 @@ def test_graph_step_holds_the_tables_of_its_key():
     cfg = B.BpskConfig(rate=RATE)
     tun = (11900.05, 24000.05)
     assert B.mix_mode_for(tun, RATE, (False, False)) == "static"
-    step = B.BpskGraphStep(slots=2)
+    step = GraphStep(slots=2, graphable=False)
     sig = _signal(1)
     blk = _block(sig, 0, "cpu")
     iq = CF(blk.re.expand(2, -1), blk.im.expand(2, -1))
-    step(iq, cfg, B.bpsk_init_batch(cfg, 2, "cpu"), tun)
+    step(B.bpsk_block_batch, iq, B.bpsk_init_batch(cfg, 2, "cpu"), slot=0,
+         cfg=cfg, tunings=tun)
     held = {fn for fn, _ in step._tables}
     assert {B._static_ramp, B._host_vector} <= held
     ramp = step._tables[next(k for k in step._tables
                              if k[0] is B._static_ramp)]
     B._static_ramp.cache_clear()
     assert any(v is ramp for v in step._tables.values())
-    step(iq, cfg, B.bpsk_init_batch(cfg, 2, "cpu"), TABS)
+    step(B.bpsk_block_batch, iq, B.bpsk_init_batch(cfg, 2, "cpu"), slot=0,
+         cfg=cfg, tunings=TABS)
     assert not any(v is ramp for v in step._tables.values())
 
 
@@ -204,7 +247,7 @@ def test_graph_step_state_sets():
     """The set a step reads: the set the state is, else the first after a
     copy of the state into it."""
     cfg = B.BpskConfig(rate=RATE)
-    step = B.BpskGraphStep(slots=4)
+    step = GraphStep(slots=4, graphable=False)
     st = B.bpsk_init_batch(cfg, 2, "cpu")
     st = st._replace(counters=st.counters + 7)
     assert step._source(st) == 0
@@ -215,14 +258,15 @@ def test_graph_step_state_sets():
 
 def test_graph_step_off_a_card_is_the_eager_step():
     cfg = B.BpskConfig(rate=RATE, fuse_mf=True)
-    step = B.BpskGraphStep(slots=4)
+    step = GraphStep(slots=4, graphable=False)   # as its stage rules here
     st_e = st_g = B.bpsk_init_batch(cfg, 2, "cpu")
     sig = _signal(3)
     for b in range(3):
         blk = _block(sig, b, "cpu")
         iq = CF(blk.re.expand(2, -1), blk.im.expand(2, -1))
         out_e, st_e = B.bpsk_block_batch(iq, cfg, st_e, TABS)
-        out_g, st_g = step(iq, cfg, st_g, TABS, slot=b)
+        out_g, st_g = step(B.bpsk_block_batch, iq, st_g, slot=b, cfg=cfg,
+                           tunings=TABS)
         assert step.last == "eager"
         assert _equal(out_e, out_g) and _equal(st_e, st_g)
 
@@ -260,58 +304,93 @@ def test_graph_step_key_separates_the_step_functions(stub_graphs):
     sig = _signal(1)
     iq = _tabs(_block(sig, 0, "cpu"))
     st0 = B.bpsk_init_batch(cfg, 2, "cpu")
-    step = B.BpskGraphStep(slots=2)
-    _, st = step(iq, cfg, st0, TABS)
+    step = GraphStep(slots=2, graphable=True)       # as on a card
+    tel = functools.partial(step, B.bpsk_block_batch, cfg=cfg, tunings=TABS)
+    spec = functools.partial(step, B.bpsk_block_batch_spectrum, cfg=cfg,
+                             tunings=TABS)
+    _, st = tel(iq, st0, slot=0)
     assert step.last == "eager"
-    step._graphable = True            # as on a card
-    _, st = step(iq, cfg, st, TABS, slot=0)
+    _, st = tel(iq, st, slot=0)
     assert step.last == "capture" and len(step._graphs) == 1
 
-    spec = functools.partial(step, fn=B.bpsk_block_batch_spectrum)
     want = B.bpsk_block_batch_spectrum(iq, cfg, st, TABS)
-    got = spec(iq, cfg, st, TABS, slot=1)
+    got = spec(iq, st, slot=1)
     assert step.last == "eager" and step._graphs == {} and step._sets == ()
     assert len(got) == 3 and _equal(got, want)
-    step._graphable = True
     want = B.bpsk_block_batch_spectrum(iq, cfg, got[-1], TABS)
-    got = spec(iq, cfg, got[-1], TABS, slot=1)
+    got = spec(iq, got[-1], slot=1)
     assert step.last == "capture" and list(step._graphs) == [(1, 0)]
     assert got[-1] is step._sets[1] and _equal(got, want)
-    spec(iq, cfg, got[-1], TABS, window=False, slot=1)
+    spec(iq, got[-1], window=False, slot=1)
     assert step.last == "eager" and step._graphs == {}
-    step._graphable = True
-    spec(iq, cfg, st0, TABS, window=False, slot=1)
+    spec(iq, st0, window=False, slot=1)
     assert step.last == "capture" and len(step._graphs) == 1
-    step(iq, cfg, st0, TABS, slot=0)
+    tel(iq, st0, slot=0)
     assert step.last == "eager" and step._graphs == {}
 
 
-@pytest.mark.parametrize("kernel", [spectrum_front_fused, spectrum_fused])
-def test_a_replay_counts_the_spectrum_kernels_launches(stub_graphs, kernel):
-    """Kernel 3's and kernel 4's wrappers are among the step's kernels: a
-    capture leaves their launch counters as they were (it runs nothing),
-    and each replay adds the launches its graph made, as the eager step
-    would. The step here is a stub that launches ``kernel`` once."""
-    assert kernel in B._KERNELS
+# every kernel wrapper of the package that counts its launches: kernels 3
+# and 4 (the spectrum step's), 1, 2, 5, 6, A and B's three
+LAUNCHING = [spectrum_front_fused, spectrum_fused, mix_decimate,
+             timing_recover_batch, psd_waterfall, mix_decimate_mf,
+             viterbi27_bytes, fec_check, decode_rs, encode_fec40]
 
-    def launching(iq, cfg, states, tunings=None, window=True):
+
+@pytest.mark.parametrize("kernel", LAUNCHING)
+def test_a_replay_counts_the_spectrum_kernels_launches(stub_graphs, kernel):
+    """Each kernel wrapper is in the launch-counter registry: a capture
+    leaves its launch counter as it was (it runs nothing), and each
+    replay adds the launches its graph made, as the eager step would.
+    The step here is a stub that launches ``kernel`` once."""
+    assert kernel in _build.LAUNCH_COUNTERS
+
+    def launching(iq, states, cfg=None, tunings=None, window=True):
         kernel.launches += 1          # what the kernel's wrapper counts
         return iq.re.sum(), states._replace(counters=states.counters + 1)
 
     cfg = B.BpskConfig(rate=RATE)
     iq = _tabs(_block(_signal(1), 0, "cpu"))
     st = B.bpsk_init_batch(cfg, 2, "cpu")
-    step = B.BpskGraphStep(slots=2)
+    step = GraphStep(slots=2, graphable=True)       # as on a card
     before = kernel.launches
     ran = []
     for b in range(4):
-        _, st = step(iq, cfg, st, TABS, slot=b % 2, fn=launching,
+        _, st = step(launching, iq, st, slot=b % 2, cfg=cfg, tunings=TABS,
                      window=True)
         ran.append(step.last)
         assert kernel.launches - before == b + 1
-        step._graphable = True        # as on a card
     assert ran == ["eager", "capture", "capture", "replay"]
     assert [g.replays for g, _, _ in step._graphs.values()] == [2, 1]
+
+
+def test_every_launch_counter_is_registered():
+    """With every module of the package imported, the registry holds
+    exactly the wrappers that count launches, and no module sets a
+    counter by hand (a wrapper left out would drop out of its counter
+    after a replay)."""
+    root = Path(jsdr_tpu_torch.__file__).parent
+    counting = set()
+    for info in pkgutil.walk_packages([str(root)], "jsdr_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        counting |= {fn for fn in vars(mod).values()
+                     if callable(fn) and hasattr(fn, "launches")}
+    assert counting == set(_build.LAUNCH_COUNTERS) == set(LAUNCHING)
+    assert len(_build.LAUNCH_COUNTERS) == len(LAUNCHING)
+    hand = [p.name for p in root.rglob("*.py")
+            if re.search(r"^\w+\.launches = 0", p.read_text(), re.M)]
+    assert hand == []
+
+
+def test_the_graph_step_imports_nothing_from_demod():
+    """``runtime/graph.py`` is the runtime's: importing it imports no
+    module of ``demod/``, and it names no BPSK type."""
+    import jsdr_tpu_torch.runtime.graph as G
+    code = ("import sys, jsdr_tpu_torch.runtime.graph; "
+            "print([m for m in sys.modules if '.demod' in m])")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+    assert "bpsk" not in Path(G.__file__).read_text().lower()
 
 
 def test_graph_step_holds_the_spectrum_tables_of_its_key():
@@ -319,10 +398,10 @@ def test_graph_step_holds_the_spectrum_tables_of_its_key():
     DFT tables (``spectrum_fused._tables_on``, a bounded cache), so
     emptying the cache frees none of them."""
     cfg = B.BpskConfig(rate=RATE)
-    step = B.BpskGraphStep(slots=2)
+    step = GraphStep(slots=2, graphable=False)
     iq = _tabs(_block(_signal(1), 0, "cpu"))
-    step(iq, cfg, B.bpsk_init_batch(cfg, 2, "cpu"), TABS,
-         fn=B.bpsk_block_batch_spectrum, window=True)
+    step(B.bpsk_block_batch_spectrum, iq, B.bpsk_init_batch(cfg, 2, "cpu"),
+         slot=0, cfg=cfg, tunings=TABS, window=True)
     held = [v for k, v in step._tables.items() if k[0] is _tables_on]
     assert len(held) == 1
     _tables_on.cache_clear()
@@ -533,7 +612,7 @@ MODES = {
 @pytest.mark.card
 @pytest.mark.parametrize("case", list(MODES))
 def test_graph_step_in_each_front_end_mode(card, case):
-    """Each front-end mode through ``BpskGraphStep`` with slots as a stage
+    """Each front-end mode through ``GraphStep`` with slots as a stage
     of ``sync_every`` 2 gives them: bit for bit the eager step's outputs
     and state, and every mode captures and replays."""
     mode, fuse_mf, tun, dofft = MODES[case]
@@ -541,14 +620,15 @@ def test_graph_step_in_each_front_end_mode(card, case):
     assert B.mix_mode_for(tun, RATE, B._flags(
         False if dofft is None else dofft, 2)) == mode
     sig = _signal(6)
-    step = B.BpskGraphStep(slots=2)
+    step = GraphStep(slots=2, graphable=True)
     st_e = st_g = B.bpsk_init_batch(cfg, 2, card)
     ran = []
     for b in range(6):
         blk = _block(sig, b, card)
         iq = CF(blk.re.expand(2, -1), blk.im.expand(2, -1))
         out_e, st_e = B.bpsk_block_batch(iq, cfg, st_e, tun, dofft=dofft)
-        out_g, st_g = step(iq, cfg, st_g, tun, dofft=dofft, slot=b % 2)
+        out_g, st_g = step(B.bpsk_block_batch, iq, st_g, slot=b % 2,
+                           cfg=cfg, tunings=tun, dofft=dofft)
         ran.append(step.last)
         assert _equal(out_e, out_g), f"outputs of block {b}"
         assert _equal(st_e, st_g), f"state after block {b}"
@@ -635,7 +715,8 @@ def test_graphed_spectrum_stage_is_bit_exact_to_the_eager_step(card, case):
 
     r, want = _spectrum_session(sig, size, card)
     eager = SpectrumTelemetryStage(cfg, tabs, device=card)
-    eager._step = B.BpskGraphStep(slots=0)   # every slot outside: eager
+    # every slot outside the step's: eager
+    eager._step = GraphStep(slots=0, graphable=True)
     assert r.run([eager]) == n
     assert r.tracer.counters["telemetry.graph_eager"] == n
     assert [t for t, _ in got] == [t for t, _ in want]

@@ -22,7 +22,6 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from jsdr_tpu_torch.demod import bpsk as B
 from jsdr_tpu_torch.demod.bpsk import (BpskConfig, bpsk_block,
                                        bpsk_block_batch, bpsk_init,
                                        bpsk_init_batch, state_from_numpy,
@@ -32,6 +31,7 @@ from jsdr_tpu_torch.io.sources import synth_bpsk_stream, synth_noise
 from jsdr_tpu_torch.ops.cplx import CF, from_complex
 from jsdr_tpu_torch.parallel import (make_mesh, sharded_spectrum,
                                      sharded_telemetry_step)
+from jsdr_tpu_torch.runtime.state import tree_map
 
 FIELDS = ("n_bits", "bits", "n_hits", "windows", "hit_corr")
 
@@ -263,8 +263,8 @@ def test_sharded_randomized_property_matches_single_device():
             assert torch.equal(getattr(st_s, f), getattr(st_r, f)), (trial, f)
         assert torch.equal(st_s.counters[:, :2], st_r.counters[:, :2])
         keep = torch.as_tensor(carrier)
-        _states_close(B._map_state(lambda x: x[keep], st_s),
-                      B._map_state(lambda x: x[keep], st_r))
+        _states_close(tree_map(lambda x: x[keep], st_s),
+                      tree_map(lambda x: x[keep], st_r))
 
 
 def test_sharded_shape_validation():
