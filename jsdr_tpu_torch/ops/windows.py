@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.device import device_table
+
 
 def hamming_np(n: int) -> np.ndarray:
     """Host-side (numpy) Hamming with the reference's period-N convention,
@@ -28,6 +30,14 @@ def hamming(n: int, dtype=torch.float32,
     ``dtype`` on ``device``."""
     s = torch.arange(n, dtype=dtype, device=device)
     return (0.54 - 0.46 * torch.cos(2 * np.pi * s / n)).to(dtype)
+
+
+@device_table(maxsize=8)
+def hamming_on(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`hamming`'s float32 window of ``n`` computed on ``device``,
+    built once (a device table): the values ``hamming(n, device=device)``
+    gives, bit for bit."""
+    return hamming(n, device=device)
 
 
 def hamming_symmetric(n: int, dtype=torch.float32,

@@ -35,9 +35,12 @@ was framed), ``drain.runs`` (drains with blocks pending), ``drain.hits``
 ``telemetry.graph_replays``, ``telemetry.graph_captures`` and
 ``telemetry.graph_eager`` for each step of a ``TelemetryStage`` or a
 ``SpectrumTelemetryStage`` (a replayed CUDA graph, a new one, or eager
-launches), and, for each ``SpectrumTelemetryStage`` step, one of
+launches), for each ``SpectrumTelemetryStage`` step, one of
 ``spectrum_telemetry.merged`` (the merged kernel ran) and
-``spectrum_telemetry.staged`` (the staged pair).
+``spectrum_telemetry.staged`` (the staged pair), and one of
+``spectrum.graph_replays``, ``spectrum.graph_captures`` and
+``spectrum.graph_eager`` for each block of a ``SpectrumStage`` in its
+waterfall form.
 Spans after the last block (the source's end, the final flush) carry
 block n, the number of blocks.
 
@@ -290,7 +293,16 @@ class SpectrumStage(Stage):
     PSD + waterfall kernel (:func:`jsdr_tpu_torch.ops.psd_waterfall.
     psd_waterfall`), which also emits ready-to-render 8-bit lines
     ('waterfall-line'). The stage has no state; it runs on its blocks'
-    device."""
+    device.
+
+    The waterfall form runs :func:`waterfall_step` through a
+    :class:`~jsdr_tpu_torch.runtime.graph.GraphStep` of one slot: on a
+    card (its first block's device) blocks replay a captured CUDA graph.
+    Each block's lines and dB come back in one copy to the host, in the
+    ``spectrum.readback`` span, and are published as views into that
+    block's own host array; each block counts ``spectrum.graph_replays``,
+    ``spectrum.graph_captures`` or ``spectrum.graph_eager`` on the
+    Session's tracer."""
 
     name = "spectrum"
 
@@ -300,39 +312,73 @@ class SpectrumStage(Stage):
         self.fft_n = fft_n or rate // 10
         self.window = window
         self.waterfall_width = waterfall_width
+        self._step = None       # the waterfall form's, made at its first block
 
     def process(self, block, session: Session):
+        if self.waterfall_width:
+            self._waterfall(block, session)
+            return
         from ..ops.spectrum import spectrum_block
         n = (block.shape[-1] // self.fft_n) * self.fft_n
         blocks = CF(block.re[:n].reshape(-1, self.fft_n),
                     block.im[:n].reshape(-1, self.fft_n))
-        if self.waterfall_width:
-            from ..ops.mxu_fft import fft_cf
-            from ..ops.psd_waterfall import psd_waterfall
-            from ..ops.windows import hamming
-            if self.window:
-                w = hamming(self.fft_n, device=blocks.re.device)
-                blocks = CF(blocks.re * w, blocks.im * w)
-            db, lines = psd_waterfall(fft_cf(blocks),
-                                      width=self.waterfall_width)
-            with session.tracer.span("spectrum.readback"):
-                lines, db = lines.cpu().numpy(), db.cpu().numpy()
-            session.publish("waterfall-line", lines)
-            session.publish("fft-psd", db)
-        else:
-            res = spectrum_block(blocks, rate=float(self.rate),
-                                 window=self.window)
-            with session.tracer.span("spectrum.readback"):
-                psd = res.psd.cpu().numpy()
-                peak = (int(res.peak_freq[-1]), float(res.peak_db[-1]))
-            session.publish("fft-psd", psd)
-            session.publish("fft-peak", peak)
+        res = spectrum_block(blocks, rate=float(self.rate),
+                             window=self.window)
+        with session.tracer.span("spectrum.readback"):
+            psd = res.psd.cpu().numpy()
+            peak = (int(res.peak_freq[-1]), float(res.peak_db[-1]))
+        session.publish("fft-psd", psd)
+        session.publish("fft-peak", peak)
+
+    def _waterfall(self, block, session: Session):
+        if self._step is None:
+            # the stage reads each block's buffer back before the next
+            self._step = GraphStep(
+                1, graphable=block.re.device.type == "cuda")
+        packed, _ = self._step(waterfall_step, block, None, slot=0,
+                               fft_n=self.fft_n, width=self.waterfall_width,
+                               window=self.window)
+        session.tracer.count(SPECTRUM_STEP_COUNTERS[self._step.last])
+        with session.tracer.span("spectrum.readback"):
+            # a fresh host array a block: the graph's buffer is reused
+            host = packed.to("cpu", copy=True).numpy()
+        rows, width = block.shape[-1] // self.fft_n, self.waterfall_width
+        nb = rows * self.fft_n * 4
+        session.publish("waterfall-line", host[nb:].reshape(rows, width))
+        session.publish("fft-psd",
+                        host[:nb].view(np.float32).reshape(rows, self.fft_n))
+
+
+def waterfall_step(iq: CF, states=None, *, fft_n: int, width: int,
+                   window: bool):
+    """``SpectrumStage``'s device work on a [T] block in its waterfall
+    form, a step of no state for :class:`~jsdr_tpu_torch.runtime.graph.
+    GraphStep`: the block's whole ``fft_n`` sub-blocks, times the Hamming
+    window (a device table) if ``window``, through ``fft_cf`` and kernel 5
+    (:func:`~jsdr_tpu_torch.ops.psd_waterfall.psd_waterfall`). Returns one
+    uint8 buffer, the dB rows' float32 bytes then the lines, and the state
+    ``None``."""
+    from ..ops.mxu_fft import fft_cf
+    from ..ops.psd_waterfall import psd_waterfall
+    from ..ops.windows import hamming_on
+    n = (iq.shape[-1] // fft_n) * fft_n
+    blocks = CF(iq.re[:n].reshape(-1, fft_n), iq.im[:n].reshape(-1, fft_n))
+    if window:
+        w = hamming_on(fft_n, blocks.re.device)
+        blocks = CF(blocks.re * w, blocks.im * w)
+    db, lines = psd_waterfall(fft_cf(blocks), width=width)
+    return torch.cat([db.view(torch.uint8).reshape(-1),
+                      lines.reshape(-1)]), None
 
 
 # what a telemetry stage's step did, counted once a block
 STEP_COUNTERS = {"replay": "telemetry.graph_replays",
                  "capture": "telemetry.graph_captures",
                  "eager": "telemetry.graph_eager"}
+# what SpectrumStage's waterfall step did, counted once a block
+SPECTRUM_STEP_COUNTERS = {"replay": "spectrum.graph_replays",
+                          "capture": "spectrum.graph_captures",
+                          "eager": "spectrum.graph_eager"}
 
 
 class TelemetryStage(Stage):

@@ -1,6 +1,6 @@
 """A stage's step replayed from captured CUDA graphs (:class:`GraphStep`,
-for any step function: ``TelemetryStage``'s and
-``SpectrumTelemetryStage``'s)."""
+for any step function: ``TelemetryStage``'s, ``SpectrumTelemetryStage``'s
+and ``SpectrumStage``'s, whose step has no state)."""
 
 from __future__ import annotations
 

@@ -1,16 +1,19 @@
-"""The telemetry steps replayed from CUDA graphs
+"""The stages' steps replayed from CUDA graphs
 (``runtime/graph.py::GraphStep``, owned by ``TelemetryStage`` with
-:func:`bpsk_block_batch` and by ``SpectrumTelemetryStage`` with
-:func:`bpsk_block_batch_spectrum`) and the tables the step keeps on its
-device.
+:func:`bpsk_block_batch`, by ``SpectrumTelemetryStage`` with
+:func:`bpsk_block_batch_spectrum` and by ``SpectrumStage``'s waterfall
+form with the stateless ``waterfall_step``) and the tables the step keeps
+on its device.
 
 On the CPU the stages run the eager step and count it; the tables equal
 the module's and come back from a holder; the step's two state sets hand
 out the right one; with a stub graph in CUDA's place, the key separates
-the two step functions and a replay counts the launches of every
-registered kernel wrapper. Tests marked ``card`` run the
+the two step functions, a replay counts the launches of every
+registered kernel wrapper, and ``SpectrumStage`` captures once, then
+replays, each block read back into memory of its own. Tests marked ``card`` run the
 graphed stages against the eager :func:`bpsk_block_batch` and
-:func:`bpsk_block_batch_spectrum` on a card, bit for bit, and skip
+:func:`bpsk_block_batch_spectrum`, and the graphed ``SpectrumStage``
+against one with an eager step, on a card, bit for bit, and skip
 without one:
 ``python -m pytest --noconftest -m card tests/test_torch_graph_step.py``
 (this file imports no JAX, so it runs where the JAX package is absent)."""
@@ -48,7 +51,11 @@ from jsdr_tpu_torch.ops.spectrum_fused import (_tables_on, spectrum_fused,
                                               waterfall_natural_order)
 from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
 from jsdr_tpu_torch.runtime.device import holding
-from jsdr_tpu_torch.runtime.executor import (Session, SpectrumTelemetryStage,
+from jsdr_tpu_torch.ops import psd_waterfall as k5
+from jsdr_tpu_torch.ops.mxu_fft import fft_cf
+from jsdr_tpu_torch.ops.windows import hamming
+from jsdr_tpu_torch.runtime.executor import (Session, SpectrumStage,
+                                             SpectrumTelemetryStage,
                                              TelemetryStage)
 from jsdr_tpu_torch.runtime.graph import GraphStep
 
@@ -436,6 +443,128 @@ def test_spectrum_stage_on_the_cpu_runs_eagerly_and_counts_it():
     assert _equal(stage.state, st)
 
 
+def _waterfall_eager(x: np.ndarray, dev, fft_n: int = 9600,
+                     width: int = 960):
+    """What ``SpectrumStage(waterfall_width=width)`` published before its
+    graph step, for one block ``x``: the windowed rows through ``fft_cf``
+    and kernel 5 (its plain version off a card), read back as (lines,
+    dB)."""
+    n = (len(x) // fft_n) * fft_n
+    blk = _block(x[:n], 0, dev, n)
+    w = hamming(fft_n, device=dev)
+    rows = CF(blk.re.reshape(-1, fft_n) * w, blk.im.reshape(-1, fft_n) * w)
+    db, lines = psd_waterfall(fft_cf(rows), width=width)
+    return lines.cpu().numpy(), db.cpu().numpy()
+
+
+def _waterfall_session(sig, size, dev):
+    """A Session over ``sig`` in blocks of ``size`` and the list of its
+    ('waterfall-line', 'fft-psd') pairs, one a block."""
+    s = Session(source=iter([sig]), block_samples=size, device=dev)
+    got = []
+
+    def on(topic, v):
+        if topic == "waterfall-line":
+            got.append([v])
+        elif topic == "fft-psd":
+            got[-1].append(v)
+
+    s.pubsub.listen(on)
+    return s, got
+
+
+def _same_pairs(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        for g, w in zip(got, want) for a, b in zip(g, w, strict=True))
+
+
+def _own_memory(got) -> bool:
+    """No array one block published shares memory with another block's."""
+    return not any(np.shares_memory(a, b)
+                   for i, g in enumerate(got) for h in got[i + 1:]
+                   for a in g for b in h)
+
+
+def _graph_counts(c, layer: str) -> tuple:
+    return tuple(c.get(f"{layer}.graph_{k}", 0)
+                 for k in ("replays", "captures", "eager"))
+
+
+def test_waterfall_stage_on_the_cpu_runs_eagerly_and_counts_it():
+    """Off a card ``SpectrumStage``'s waterfall step is eager every block
+    and counted under ``spectrum.graph_*`` alone; it publishes what the
+    stage published before its graph step, bit for bit, each block in
+    memory of its own."""
+    sig = _signal(3)
+    s, got = _waterfall_session(sig, RATE, "cpu")
+    stage = SpectrumStage(RATE, waterfall_width=960)
+    assert s.run([stage]) == 3
+    c = s.tracer.counters
+    assert _graph_counts(c, "spectrum") == (0, 0, 3)
+    assert not any(k.startswith("telemetry.") for k in c)
+    assert not stage._step.graphable and stage._step.last == "eager"
+    want = [_waterfall_eager(sig[b * RATE:(b + 1) * RATE], "cpu")
+            for b in range(3)]
+    assert _same_pairs(got, want) and _own_memory(got)
+
+
+@pytest.fixture
+def counted_k5(monkeypatch):
+    """Kernel 5's plain version counting a launch, as the kernel's
+    wrapper does on a card."""
+    plain = k5.psd_waterfall_ref
+
+    def counting(spec, width):
+        psd_waterfall.launches += 1
+        return plain(spec, width)
+
+    monkeypatch.setattr(k5, "psd_waterfall_ref", counting)
+
+
+def test_waterfall_stage_captures_once_then_replays(stub_graphs, counted_k5):
+    """With a (stub) graph step, as on a card: one eager block, one
+    capture, then replays, counted under ``spectrum.graph_*``; kernel 5
+    counts a launch a block; the published lines and dB are those of the
+    stage before its graph step, bit for bit (the blocks repeat: a stub
+    replay runs nothing), each block's read back into a host array of its
+    own, never the graph's buffer."""
+    x = _signal(1)[:RATE]
+    s, got = _waterfall_session(np.tile(x, 5), RATE, "cpu")
+    stage = SpectrumStage(RATE, waterfall_width=960)
+    stage._step = GraphStep(slots=1, graphable=True)     # as on a card
+    before = psd_waterfall.launches
+    assert s.run([stage]) == 5
+    assert psd_waterfall.launches - before == 5
+    assert _graph_counts(s.tracer.counters, "spectrum") == (3, 1, 1)
+    assert list(stage._step._graphs) == [(0, 0)]
+    ((graph, (packed,), _),) = stage._step._graphs.values()
+    assert graph.replays == 4
+    assert _same_pairs(got, [_waterfall_eager(x, "cpu")] * 5)
+    assert _own_memory(got)
+    assert not any(np.shares_memory(a, packed.numpy()) for g in got
+                   for a in g)
+
+
+def test_waterfall_step_holds_its_window():
+    """The waterfall step's first block holds its Hamming window, a
+    device table equal to ``hamming``'s bit for bit, so emptying the
+    cache frees it; without ``window`` it reads none."""
+    from jsdr_tpu_torch.ops.windows import hamming_on
+    from jsdr_tpu_torch.runtime.executor import waterfall_step
+    blk = _block(_signal(1), 0, "cpu")
+    step = GraphStep(slots=1, graphable=False)
+    step(waterfall_step, blk, None, slot=0, fft_n=9600, width=960,
+         window=True)
+    (held,) = step._tables.values()
+    assert torch.equal(held, hamming(9600))
+    hamming_on.cache_clear()
+    assert hamming_on(9600, torch.device("cpu")) is not held
+    step(waterfall_step, blk, None, slot=0, fft_n=9600, width=960,
+         window=False)
+    assert step._tables == {}
+
+
 # ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
@@ -724,6 +853,62 @@ def test_graphed_spectrum_stage_is_bit_exact_to_the_eager_step(card, case):
     frames = [v for t, v in got if t == "telemetry-frame"]
     assert any(f["ok"] for f in frames)
     assert sum(t == "waterfall-line" for t, _ in got) == n // 4
+
+
+class _RaisesOnce(GraphStep):
+    """A graph step of one slot whose call number ``at`` (from 0) raises
+    after the step ran, before its stage reads the outputs back."""
+
+    def __init__(self, at: int | None = None, **kw):
+        super().__init__(**kw)
+        self.at, self.calls = at, 0
+
+    def __call__(self, *a, **kw):
+        out = super().__call__(*a, **kw)
+        self.calls += 1
+        if self.calls - 1 == self.at:
+            raise RuntimeError("injected after the step")
+        return out
+
+
+@pytest.mark.card
+def test_graphed_waterfall_stage_publishes_what_the_eager_one_does(card):
+    """12 s at 96 kS/s through ``SpectrumStage(waterfall_width=960)``:
+    8 blocks of 1 s, the step's first attempt at block 6 raising after
+    its replay (the Session retries the block), then the same stage in a
+    Session of 0.5 s blocks (a new shape, a new key: eager, then a
+    capture, then replays). The graphed stage publishes what the stage
+    with an eager step publishes, bit for bit, and its first block what
+    the stage published before its graph step; every block in memory of
+    its own; kernel 5 counts a launch a step, the failed attempt's too."""
+    n, fail_at, size2 = 8, 6, RATE // 2
+    sig = _signal(12)
+
+    def run(step):
+        stage = SpectrumStage(RATE, waterfall_width=960)
+        stage._step = step
+        got, ran, counts = [], [], []
+        for x, size in ((sig[:n * RATE], RATE), (sig[n * RATE:], size2)):
+            s, out = _waterfall_session(x, size, card)
+            s.pubsub.listen(lambda t, v: ran.append(step.last)
+                            if t == "audio-frame" else None)
+            assert s.run([stage]) == len(x) // size
+            assert s.dropped_blocks == {}
+            counts.append(_graph_counts(s.tracer.counters, "spectrum"))
+            got += out
+        return got, ran, counts
+
+    before = psd_waterfall.launches
+    got, ran, counts = run(_RaisesOnce(fail_at, slots=1, graphable=True))
+    assert psd_waterfall.launches - before == n + 1 + 8
+    want, _, eager = run(GraphStep(slots=0, graphable=True))
+    assert eager == [(0, 0, n), (0, 0, 8)]
+    assert ran == (["eager", "capture"] + ["replay"] * (n - 2)
+                   + ["eager", "capture"] + ["replay"] * 6)
+    assert counts == [(n - 2, 1, 1), (6, 1, 1)]
+    assert _same_pairs(got, want) and _own_memory(got)
+    assert _same_pairs(got[:1], [_waterfall_eager(sig[:RATE], card)])
+    assert [g[1].shape for g in got] == [(10, 9600)] * n + [(5, 9600)] * 8
 
 
 @pytest.mark.card
