@@ -362,12 +362,16 @@ def cmd_telemetry_stream(args) -> int:
         session.save_checkpoint([stage])
         print(f"stream state -> {args.checkpoint}")
     c = session.tracer.counters
+    front = " ".join(f"{k[len('telemetry.front.'):]}={v}"
+                     for k, v in sorted(c.items())
+                     if k.startswith("telemetry.front."))
     print(f"{n} blocks streamed, frames={frames[0]}, "
           f"dropped={session.dropped_blocks or 'none'}, "
           f"hits={c['drain.hits']}, good={c['drain.good']}, "
           f"failed={c['drain.failed']}, "
           f"graph replays/captures/eager={c['telemetry.graph_replays']}/"
-          f"{c['telemetry.graph_captures']}/{c['telemetry.graph_eager']}")
+          f"{c['telemetry.graph_captures']}/{c['telemetry.graph_eager']}, "
+          f"front {front or 'none'}")
     return 0
 
 

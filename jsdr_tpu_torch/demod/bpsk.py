@@ -46,6 +46,7 @@ indexes directly.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import NamedTuple, Tuple
 
@@ -693,6 +694,15 @@ def mix_mode_for(tunings, rate: int, dofft) -> str:
     return f"mixed:{manual}" if dofft.any() else manual
 
 
+@functools.lru_cache(maxsize=64)
+def front_mode(tunings: tuple, rate: int, dofft: tuple) -> str:
+    """:func:`mix_mode_for` of a tuning set (a tuple of Hz values and one
+    of bools), decided once a set: the mode :func:`bpsk_block_batch`
+    takes and a telemetry stage counts, with no host work a block beyond
+    the cache's lookup."""
+    return mix_mode_for(tunings, rate, dofft)
+
+
 def _front_manual(iq: CF, states: BpskState, tun: np.ndarray, mode: str,
                   rate: int, fuse_mf: bool):
     """Manual-tune front end (RxMixTuner + decimator, :366-397, 466-492)
@@ -864,7 +874,8 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     ``iq``: CF of float32 [S, T] tensors, all on one device, which the
     state must share; T a multiple of 8*cfg.decim. ``tunings``: host
     array-like [S] of per-stream NCO Hz (default cfg.tuning for every
-    stream), any values: :func:`mix_mode_for` picks the front end.
+    stream), any values: :func:`mix_mode_for` picks the front end, once
+    a tuning set (:func:`front_mode`).
     ``dofft`` / ``track_high``: host bool array-likes [S], the
     per-instance FUNcube<n>-bpsk-dofft / -upper keys
     (FUNcubeBPSKDemod.java:97-99), default cfg.dofft / cfg.track_high for
@@ -881,16 +892,16 @@ def bpsk_block_batch(iq: CF, cfg: BpskConfig, states: BpskState,
     dev = iq.re.device
     tun = _block_tunings(iq, cfg, tunings)
     _warn_compat_scan(cfg, dev)
-    flags = np.asarray(_flags(cfg.dofft if dofft is None else dofft, s))
+    flags = _flags(cfg.dofft if dofft is None else dofft, s)
     high = _host_vector(_flags(
         cfg.track_high if track_high is None else track_high, s),
         torch.bool, dev)
-    mode = mix_mode_for(tun, cfg.rate, flags)
+    mode = front_mode(tuple(tun.tolist()), cfg.rate, flags)
     fuse_mf = (cfg.fuse_mf and not cfg.compat_scan
                and mode in ("dofft", "pattern", "mixed:pattern"))
     iq = CF(iq.re.contiguous(), iq.im.contiguous())
     x, ds_tail, mf_tail, tu_phase, ft_state = _front_dispatch(
-        iq, states, tun, flags, high, mode, cfg.rate, fuse_mf)
+        iq, states, tun, np.asarray(flags), high, mode, cfg.rate, fuse_mf)
     if fuse_mf:
         vco_idx = ((states.vco_idx.long() + t_len // cfg.decim)
                    % SAMPLES_PER_BIT).to(torch.int32)

@@ -35,7 +35,9 @@ was framed), ``drain.runs`` (drains with blocks pending), ``drain.hits``
 ``telemetry.graph_replays``, ``telemetry.graph_captures`` and
 ``telemetry.graph_eager`` for each step of a ``TelemetryStage`` or a
 ``SpectrumTelemetryStage`` (a replayed CUDA graph, a new one, or eager
-launches), for each ``SpectrumTelemetryStage`` step, one of
+launches) and ``telemetry.front.<mode>`` (the front end it ran: general,
+pattern, static, dofft or mixed_<manual mode>), for each
+``SpectrumTelemetryStage`` step, one of
 ``spectrum_telemetry.merged`` (the merged kernel ran) and
 ``spectrum_telemetry.staged`` (the staged pair), and one of
 ``spectrum.graph_replays``, ``spectrum.graph_captures`` and
@@ -426,7 +428,10 @@ class TelemetryStage(Stage):
     graph's memory; ``state`` is then one of the step's two static sets,
     valid until the block after the next one. Each block counts
     ``telemetry.graph_replays``, ``telemetry.graph_captures`` or
-    ``telemetry.graph_eager`` on the Session's tracer.
+    ``telemetry.graph_eager`` on the Session's tracer, and
+    ``telemetry.front.<mode>``, the front end its step ran (the mode
+    ``demod.bpsk.mix_mode_for`` names, ':' written '_'), decided once a
+    tuning set.
     """
 
     name = "telemetry"
@@ -448,6 +453,7 @@ class TelemetryStage(Stage):
         self.mesh = mesh
         self._pending = []              # un-synced device block outputs
         self._n_blocks = 0
+        self._decided = (None, ())      # _step_counters' (key, names)
         if mesh is None:
             # a pending block's outputs each in a graph of their own
             self._step = GraphStep(
@@ -494,11 +500,33 @@ class TelemetryStage(Stage):
         self._run_step(session, "telemetry.step", bpsk_block_batch, block,
                        dofft=self.dofft, track_high=self.track_high)
 
+    def _step_counters(self, t_len: int) -> tuple:
+        """The counters of a step over ``t_len`` samples besides the
+        graph step's, decided once a tuning set and block length
+        (:meth:`_decide_counters`)."""
+        key = (tuple(self.tunings or ()), tuple(self.dofft or ()), t_len)
+        if key != self._decided[0]:
+            self._decided = (key, self._decide_counters(t_len))
+        return self._decided[1]
+
+    def _decide_counters(self, t_len: int) -> tuple:
+        """``telemetry.front.<mode>``: the front end the step runs, the
+        mode :func:`~jsdr_tpu_torch.demod.bpsk.front_mode` names with ':'
+        written '_'. On a mesh the sharded step mixes every manual stream
+        by exact numerators: "general" in place of "pattern"."""
+        from ..demod.bpsk import front_mode
+        mode = front_mode(tuple(self.tunings or [self.cfg.tuning] * self.n),
+                          self.cfg.rate,
+                          tuple(self.dofft or [self.cfg.dofft] * self.n))
+        if self.mesh is not None:
+            mode = mode.replace("pattern", "general")
+        return ("telemetry.front." + mode.replace(":", "_"),)
+
     def _run_step(self, session: Session, span: str, fn, block, **kw):
         """The step ``fn`` on the block's rows (one an instance) in the
         tracer's ``span``, through the graph step (on a mesh, the sharded
         step, eager, in its place): keeps the new state, counts what the
-        step did and queues its outputs."""
+        step did (:meth:`_step_counters` too) and queues its outputs."""
         rows = _broadcast(block, self.n)
         with session.tracer.span(span):
             if self.mesh is None:
@@ -511,6 +539,8 @@ class TelemetryStage(Stage):
                                                  self.tunings, **kw)
                 ran = "eager"
         session.tracer.count(STEP_COUNTERS[ran])
+        for name in self._step_counters(block.shape[-1]):
+            session.tracer.count(name)
         self._queue(out, session)
 
     def _queue(self, out, session: Session):
@@ -598,9 +628,11 @@ class SpectrumTelemetryStage(TelemetryStage):
     its own graph's memory, which the drain reads before that graph runs
     again. Its span is ``spectrum_telemetry.step``, and each block counts
     ``telemetry.graph_replays``, ``telemetry.graph_captures`` or
-    ``telemetry.graph_eager`` (what the step did), and
-    ``spectrum_telemetry.merged`` or ``spectrum_telemetry.staged`` (as
-    :func:`~jsdr_tpu_torch.demod.bpsk.spectrum_step_merged` rules)."""
+    ``telemetry.graph_eager`` (what the step did), the front end's
+    ``telemetry.front.<mode>``, and ``spectrum_telemetry.merged`` or
+    ``spectrum_telemetry.staged`` (as :func:`~jsdr_tpu_torch.demod.bpsk.
+    spectrum_step_merged` rules), decided once a tuning set and block
+    length."""
 
     name = "spectrum-telemetry"
 
@@ -616,15 +648,21 @@ class SpectrumTelemetryStage(TelemetryStage):
         self._spec = None
 
     def process(self, block, session: Session):
-        from ..demod.bpsk import (bpsk_block_batch_spectrum,
-                                  spectrum_step_merged)
-        merged = spectrum_step_merged(
-            self.cfg, block.shape[-1],
-            self.tunings or [self.cfg.tuning] * self.n)
+        from ..demod.bpsk import bpsk_block_batch_spectrum
         self._run_step(session, "spectrum_telemetry.step",
                        bpsk_block_batch_spectrum, block, window=self.window)
-        session.tracer.count("spectrum_telemetry.merged" if merged
-                             else "spectrum_telemetry.staged")
+
+    def _decide_counters(self, t_len: int) -> tuple:
+        """The front end's counter, and ``spectrum_telemetry.merged`` or
+        ``spectrum_telemetry.staged`` as :func:`~jsdr_tpu_torch.demod.
+        bpsk.spectrum_step_merged` rules (the merged kernel's front end is
+        the pattern mode's)."""
+        from ..demod.bpsk import spectrum_step_merged
+        merged = spectrum_step_merged(
+            self.cfg, t_len, self.tunings or [self.cfg.tuning] * self.n)
+        return (*super()._decide_counters(t_len),
+                "spectrum_telemetry.merged" if merged
+                else "spectrum_telemetry.staged")
 
     def _queue(self, out, session: Session):
         self._spec = out[0]          # the waterfall the next drain shows

@@ -28,11 +28,11 @@ from jsdr_tpu_torch.ops.cplx import CF
 from jsdr_tpu_torch.ops.spectrum_fused import spectrum_waterfall
 
 
-def _frame(rate, block):
+def _frame(rate, block, carrier=12000.0):
     payload = np.random.default_rng(1234).integers(0, 256, (1, 256),
                                                    dtype=np.uint8)
-    sig = synth_bpsk_stream(payload, rate=rate, preamble_bits=200,
-                            noise_rms=0.2)
+    sig = synth_bpsk_stream(payload, rate=rate, carrier_offset=carrier,
+                            preamble_bits=200, noise_rms=0.2)
     n = len(sig) + (-len(sig)) % block
     iq = np.zeros((2, n), np.complex64)
     iq[0, :len(sig)] = sig
@@ -209,18 +209,24 @@ def test_what_still_raises():
     ([12000.5, 1200.0], {}),                       # general
     ([12000.0, 12000.0], {"dofft": True}),          # dofft
     ([12000.0, 12000.0], {"dofft": True, "track_high": True}),
+    ([12730.0, 26230.0], {"rate": 192000, "carrier": 12730.0}),  # general
 ])
 def test_staged_step_in_every_mode_matches_jax(tunings, flags):
     """The general and dofft (lower and upper half-band) deployments take
     the staged branch in both packages, 1 s blocks chained over the
     frame: waterfalls, peaks, decisions, state and the payload as in
     test_spectrum_step_matches_jax; the waterfall is the pattern-mode
-    step's, bit for bit, since it does not depend on the tuner."""
-    rate, block = 96000, 96000
-    payload, iq = _frame(rate, block)
+    step's, bit for bit, since it does not depend on the tuner. The last
+    case is the 192 kS/s station with its tabs off the 1500 Hz grid, its
+    frame on tab 0's carrier (96 kS/s and 12 kHz where ``flags`` name no
+    rate and carrier)."""
+    flags = dict(flags)
+    rate = flags.pop("rate", 96000)
+    block = rate
+    payload, iq = _frame(rate, block, flags.pop("carrier", 12000.0))
     cfg = JB.BpskConfig(rate=rate, tuning=tunings[0], **flags)
     tcfg = TB.BpskConfig(rate=rate, tuning=tunings[0], **flags)
-    assert not TB.spectrum_step_merged(tcfg, 192000, np.asarray(tunings))
+    assert not TB.spectrum_step_merged(tcfg, 2 * block, np.asarray(tunings))
     st_j = jax.tree.map(np.asarray, JB.bpsk_init_batch(cfg, 2))
     st_t = TB.state_from_numpy(st_j, "cpu")
     st_p = TB.bpsk_init_batch(TB.BpskConfig(rate=rate), 2, "cpu")

@@ -105,8 +105,8 @@ def test_cli_telemetry_stream_blocks_and_device_convert(tmp_path, capsys):
     ``--device-convert`` uploads raw int16, and frames print in the
     reference's streaming format, and the closing line adds the drain's
     counters (sync hits decoded, good, failed) and the telemetry step's
-    (graph replays, captures, eager blocks: all eager on the CPU) to the
-    reference's. The
+    (graph replays, captures, eager blocks: all eager on the CPU) and the
+    front end's blocks by mode to the reference's. The
     stream is whole 1 s blocks: a live source's last partial block is not
     processed (as in the reference)."""
     path, payload = _capture(tmp_path)
@@ -116,7 +116,7 @@ def test_cli_telemetry_stream_blocks_and_device_convert(tmp_path, capsys):
                  "--device", "cpu"]) == 0
     assert capsys.readouterr().out.strip().endswith(
         "2 blocks streamed, frames=0, dropped=none, hits=0, good=0, "
-        "failed=0, graph replays/captures/eager=0/0/2")
+        "failed=0, graph replays/captures/eager=0/0/2, front pattern=2")
     ck = tmp_path / "stream.npz"
     assert main(["telemetry", f"pipe:{path}", "--device-convert",
                  "--checkpoint", str(ck), "--device", "cpu"]) == 0
@@ -126,7 +126,8 @@ def test_cli_telemetry_stream_blocks_and_device_convert(tmp_path, capsys):
     assert f"    0: {row0}" in out
     assert out.strip().endswith("5 blocks streamed, frames=1, dropped=none, "
                                 "hits=1, good=1, failed=0, graph "
-                                "replays/captures/eager=0/0/5")
+                                "replays/captures/eager=0/0/5, "
+                                "front pattern=5")
     assert ck.exists()
     # --mesh 2x4: the sharded step in the same Session prints the same
     # frames as the JAX package's --mesh 2x4 (its 8 virtual CPU devices)
@@ -136,7 +137,7 @@ def test_cli_telemetry_stream_blocks_and_device_convert(tmp_path, capsys):
     for who, fn, dev, tail in (
             ("port", main, ["--device", "cpu"],
              ", hits=1, good=1, failed=0, "
-             "graph replays/captures/eager=0/0/5"),
+             "graph replays/captures/eager=0/0/5, front general=5"),
             ("jax", jax_main, [], "")):
         assert fn(["telemetry", f"pipe:{path}", "--tuning", "12000,9000",
                    "--mesh", "2x4", *dev]) == 0
@@ -215,7 +216,8 @@ def test_cli_telemetry_stream_auto_tune(tmp_path, capsys):
     assert frames == ["demod0@0Hz corr=65 ok=True channel_errors=0"]
     assert want[-1] == "5 blocks streamed, frames=1, dropped=none"
     assert got[-1] == want[-1] + (", hits=1, good=1, failed=0, "
-                                  "graph replays/captures/eager=0/0/5")
+                                  "graph replays/captures/eager=0/0/5, "
+                                  "front dofft=5")
     for row in _rows(pay[1]):
         assert row in got
 

@@ -13,7 +13,9 @@ and prints the drain's counters. In the written trace a
 ``telemetry.step``) and counts ``spectrum_telemetry.merged`` or
 ``.staged`` once a block, a ``TelemetryStage`` still opens
 ``telemetry.step``, and ``session.framer_bytes`` counts each block's bytes
-once, the raw and the complex framer's, on whole and ragged chunks."""
+once, the raw and the complex framer's, on whole and ragged chunks. Both
+telemetry stages count the front end each step ran,
+``telemetry.front.<mode>``, deciding the mode once a tuning set."""
 
 import functools
 import json
@@ -252,7 +254,8 @@ def test_cli_trace_out_writes_spans_and_counters(tmp_path, capsys):
     n = len(_frame_signal()) // 96000
     assert capsys.readouterr().out.strip().endswith(
         f"{n} blocks streamed, frames=1, dropped=none, hits=1, good=1, "
-        f"failed=0, graph replays/captures/eager=0/0/{n}")
+        f"failed=0, graph replays/captures/eager=0/0/{n}, "
+        f"front pattern={n}")
     trace = json.loads(out.read_text())
     spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
     assert {"session.frame", "h2d", "telemetry", "telemetry.step",
@@ -261,6 +264,7 @@ def test_cli_trace_out_writes_spans_and_counters(tmp_path, capsys):
     assert {e["args"]["block"] for e in spans} == set(range(n + 1))
     counters = trace["otherData"]["counters"]
     assert counters["session.blocks"] == n and counters["drain.good"] == 1
+    assert counters["telemetry.front.pattern"] == n
     assert [e["args"] for e in trace["traceEvents"]
             if e["ph"] == "C"] == [counters]
 
@@ -318,6 +322,44 @@ def test_telemetry_stage_keeps_its_step_span(traced, tmp_path):
     assert not any(name.startswith("spectrum_telemetry")
                    for name in [sp[0] for sp in spans] + list(counters))
     assert counters["session.framer_bytes"] == n * 96000 * 8
+
+
+@pytest.mark.parametrize("tunings,mode", [((12730.0, 26230.0), "general"),
+                                          ((12000.0, 25500.0), "pattern")])
+@pytest.mark.parametrize("cls", [TelemetryStage, SpectrumTelemetryStage])
+def test_front_end_counted_each_block_decided_once(monkeypatch, tmp_path,
+                                                   cls, tunings, mode):
+    """At 192 kS/s tabs off the 1500 Hz grid run the general front end and
+    tabs on it the pattern front end (a ``SpectrumTelemetryStage``: the
+    staged pair, the merged kernel): each block counts
+    ``telemetry.front.<mode>`` once, and ``mix_mode_for`` decides the
+    mode once for the tuning set, not once a block."""
+    from jsdr_tpu_torch.demod import bpsk
+
+    calls = []
+    decide = bpsk.mix_mode_for
+
+    def spy(*args):
+        calls.append(args)
+        return decide(*args)
+
+    monkeypatch.setattr(bpsk, "mix_mode_for", spy)
+    bpsk.front_mode.cache_clear()
+    blocks, block = 3, 38400
+    s = Session(source=iter(_raw_chunks(blocks, block, 19200)),
+                block_samples=block, device="cpu",
+                timers=StageTimers(spans=True))
+    stage = cls(BpskConfig(rate=192000), tunings, sync_every=2,
+                device="cpu")
+    assert s.run([stage]) == blocks
+    _, counters = _written(s.tracer, tmp_path / "trace.json")
+    assert {k: v for k, v in counters.items()
+            if k.startswith("telemetry.front.")} == {
+        f"telemetry.front.{mode}": blocks}
+    assert len(calls) == 1
+    if cls is SpectrumTelemetryStage:
+        ran = "merged" if mode == "pattern" else "staged"
+        assert counters[f"spectrum_telemetry.{ran}"] == blocks
 
 
 @pytest.mark.parametrize("chunk", [9600, 7001, 25000])
