@@ -15,7 +15,9 @@ blocks at 96 kS/s, then one 1 s block that takes its staged branch
 (phase 8); and the streaming Session (``runtime.executor``: 128
 demodulator instances with the fused matched filter on one 96 kS/s
 stream of raw int16 chunks, beside the PSD + waterfall stage, with a
-checkpoint and resume; phase 11); and every tuning mode of the front end
+checkpoint and resume; phase 11, after its S16LE conversion kernel
+against the plain chain at the benchmark cells' block sizes); and every
+tuning mode of the front end
 (``bpsk_block_batch`` in the general, static, FFT auto-tune and mixed
 modes, and the auto-tuned deployment's staged spectrum step; phase 12);
 and the audio demodulator (``demod/am_fm.py``, which has no kernel of its
@@ -86,6 +88,11 @@ TIMING_CASES = ((128, 9600), (128, 46080), (256, 46080))
 # and groups larger than a CTA's slab of dB (width 3, step 3200)
 PSD_CASES = ((10, 9600, 960), (10, 19200, 960), (1280, 9600, 960),
              (10, 9600, 75), (6, 9590, 70), (10, 9600, 3))
+# the S16LE conversion kernel: (samples, channels, i_corr, q_corr) at the
+# Session's block sizes (1 s at 96 k, 4.8 s at 192 k), mono, and a ragged
+# length, with the corrections the plain chain takes (wrapped mod 65536)
+S16_CASES = ((96000, 2, 3, -5), (921600, 2, 2000, -40000),
+             (96000, 1, 65536 + 7, -65536 + 7), (4099, 2, -1, 32767))
 # the Session's stream: frames at 3 of the 21 tunings, 7 s of 1 s blocks
 SESSION_CARRIERS = (7500.0, 13500.0, 19500.0)
 SESSION_BLOCKS = 7
@@ -269,7 +276,9 @@ def main() -> int:
     k5 = phase_psd_waterfall(torch, np, dev, tag)
     k6 = phase_mix_decimate_mf(torch, np, dev, rng, tag)
 
-    # ---- phase 11: the streaming Session at a deployment's size -----------
+    # ---- phase 11: the S16LE conversion kernel, then the streaming Session
+    # at a deployment's size ---------------------------------------------
+    ks16 = phase_s16_convert(torch, np, dev, tag)
     session = phase_session(torch, np, dev, rng, tag)
 
     # ---- phase 12: every tuning mode at a deployment's size ---------------
@@ -329,6 +338,10 @@ def main() -> int:
              source="jsdr_tpu_torch/ops/csrc/fec_rs.cu",
              replaces="jsdr_tpu/fec/rs.py:213",
              launches=launches[3], **kb),
+        dict(name="s16_to_cf", route="cuda",
+             source="jsdr_tpu_torch/ops/csrc/s16_convert.cu",
+             replaces="jsdr_tpu/io/convert_device.py:30",
+             launches=session["s16_to_cf"], **ks16),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1408,6 +1421,60 @@ def session_signal(rng, rate: int):
             dict(zip(SESSION_CARRIERS, payloads)))
 
 
+def phase_s16_convert(torch, np, dev, tag):
+    """Phase 11, first: the Session's S16LE -> planar CF kernel
+    (``io/convert_device.py::s16_to_cf``) against the plain chain
+    (``s16_to_cf_ref``), bit for bit (exact integer work and one float32
+    product each), at S16_CASES, on random int16 with every extreme value
+    in it. Times it (event time back to back, and its device time alone,
+    :func:`device_ms`). Returns the row at the Session's shape (96,000
+    stereo samples)."""
+    from jsdr_tpu_torch.io.convert_device import s16_to_cf, s16_to_cf_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    extremes = torch.tensor([-32768, -1, 0, 32767], dtype=torch.int16,
+                            device=dev).repeat(4)
+    row = None
+    for n, channels, ic, qc in S16_CASES:
+        def samples():
+            x = torch.randint(-32768, 32768, (channels * n,),
+                              dtype=torch.int16, generator=gen, device=dev)
+            x[:len(extremes)] = extremes
+            return x
+        inputs = [(samples(), ic, qc, channels) for _ in range(3)]
+        before = s16_to_cf.launches
+        k = s16_to_cf(*inputs[0])
+        p = s16_to_cf_ref(*inputs[0])
+        torch.cuda.synchronize()
+        label = f"N={n} channels={channels} corr=({ic}, {qc})"
+        need(s16_to_cf.launches == before + 1,
+             f"s16_to_cf {label}: launched {s16_to_cf.launches - before} "
+             "kernels, want 1")
+        need(tuple(k.re.shape) == tuple(k.im.shape) == (n,)
+             and k.re.dtype == k.im.dtype == torch.float32,
+             f"s16_to_cf {label}: misshapen output")
+        err = max(float((k.re - p.re).abs().max()),
+                  float((k.im - p.im).abs().max()))
+        need(torch.equal(k.re, p.re) and torch.equal(k.im, p.im),
+             f"s16_to_cf {label}: kernel differs from plain (max abs "
+             f"{err})")
+        ms = time_ms(torch, s16_to_cf, inputs, 50)
+        dev_ms = device_ms(torch, s16_to_cf, inputs, 50)
+        plain_ms = time_ms(torch, s16_to_cf_ref, inputs, 10)
+        # per sample: the two products; bytes: the int16 read and both
+        # float32 planes written
+        b_ms, b_by = bound(2.0 * n, (2.0 * channels + 8.0) * n)
+        print(f"{tag} s16_to_cf {label}: re and im equal to plain (bit "
+              f"for bit); kernel {ms:.4f} ms (device time {dev_ms:.4f} ms),"
+              f" plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
+        if (n, channels, ic, qc) == S16_CASES[0]:
+            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       max_abs_err=err)
+    return row
+
+
 def phase_session(torch, np, dev, rng, tag):
     """Phase 11: the streaming Session at a deployment's size: 128
     FUNcube demodulator instances (tunings over the 21 multiples of
@@ -1418,8 +1485,9 @@ def phase_session(torch, np, dev, rng, tag):
     bit-exact; every good frame carries a sent payload (an instance tuned
     2250 Hz from a carrier may decode it too: the reference's
     non-complex VCO mix answers its image); instances on one tuning
-    publish the same frames; no block is dropped and no stage fails; kernels 5, 6 and 2 launch once per block (kernel 1
-    never). A checkpoint written after 3 blocks and resumed in a new
+    publish the same frames; no block is dropped and no stage fails;
+    kernels 5, 6 and 2 and the S16LE conversion kernel launch once per
+    block (kernel 1 never). A checkpoint written after 3 blocks and resumed in a new
     Session ends with the frames, counters and state of the uninterrupted
     run. The telemetry step replays captured CUDA graphs once a stage's
     four are captured: over 8 profiled blocks the device rows of kernels
@@ -1432,6 +1500,7 @@ def phase_session(torch, np, dev, rng, tag):
     import itertools
 
     from jsdr_tpu_torch.demod.bpsk import BpskConfig
+    from jsdr_tpu_torch.io.convert_device import s16_to_cf
     from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
     from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
     from jsdr_tpu_torch.ops.psd_waterfall import psd_waterfall
@@ -1449,7 +1518,7 @@ def phase_session(torch, np, dev, rng, tag):
           f"{SESSION_CARRIERS} Hz, {len(chunks)} raw chunks synthesised in "
           f"{time.perf_counter() - t0:.2f} s")
     counted = (psd_waterfall, mix_decimate_mf, timing_recover_batch,
-               mix_decimate)
+               mix_decimate, s16_to_cf)
     ck_path = ROOT / "build" / "chip_smoke_session.npz"
     ck_path.parent.mkdir(exist_ok=True)
 
@@ -1492,9 +1561,10 @@ def phase_session(torch, np, dev, rng, tag):
     launches = {fn.__name__: fn.launches for fn in counted}
     need(n == SESSION_BLOCKS, f"session ran {n} blocks")
     need(launches == {"psd_waterfall": n, "mix_decimate_mf": n,
-                      "timing_recover_batch": n, "mix_decimate": 0},
-         f"session launches {launches}: want kernels 5, 6 and 2 once per "
-         "block, kernel 1 never")
+                      "timing_recover_batch": n, "mix_decimate": 0,
+                      "s16_to_cf": n},
+         f"session launches {launches}: want kernels 5, 6 and 2 and the "
+         "S16LE conversion once per block, kernel 1 never")
     ok = [f for f in frames if f[1]]
     tuned = [i for i in range(s) if tunings[i] in payloads]
     by_inst = {i: [f[1:] for f in frames if f[0] == i] for i in range(s)}

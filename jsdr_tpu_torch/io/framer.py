@@ -35,6 +35,12 @@ class _BlockFill:
         self._fill = 0
         self.copied_bytes = 0
 
+    def _new_block(self) -> np.ndarray:
+        """A new block array of ``block`` values of ``dtype``; a subclass
+        may draw it from another allocator (the Session's raw framer,
+        :class:`jsdr_tpu_torch.io.convert_device.TensorRawFramer`)."""
+        return np.empty(self.block, self.dtype)
+
     def _push(self, chunk: np.ndarray) -> Iterator[np.ndarray]:
         """Copy ``chunk`` into the block array; yield it each time it is
         full. A chunk may end inside a block, complete it, or span
@@ -42,7 +48,7 @@ class _BlockFill:
         pos = 0
         while pos < len(chunk):
             if self._blk is None:
-                self._blk = np.empty(self.block, self.dtype)
+                self._blk = self._new_block()
             take = min(self.block - self._fill, len(chunk) - pos)
             self._blk[self._fill:self._fill + take] = chunk[pos:pos + take]
             self._fill += take

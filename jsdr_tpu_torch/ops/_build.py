@@ -63,6 +63,8 @@ _SIGNATURES = {
     "jsdr_rs_decode": [_P] * 4 + [_I, _P],
     # payload, tab, frame, n_frames, stream
     "jsdr_fec_encode": [_P] * 3 + [_I, _P],
+    # in, re, im, n, channels, i_corr, q_corr, scale, stream
+    "jsdr_s16_to_cf": [_P] * 3 + [_I] * 4 + [_F, _P],
 }
 
 

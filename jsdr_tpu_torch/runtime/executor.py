@@ -12,7 +12,7 @@ exactly, and its checkpoints load in either package
 
 Overlap: the host frames and uploads block N+1 while the card still runs
 block N. Kernels and torch ops only enqueue on the current CUDA stream,
-uploads go through pinned memory without a synchronise
+raw blocks are framed into pinned memory and go up without a synchronise
 (:mod:`jsdr_tpu_torch.io.convert_device`), and the telemetry stages read
 device values back only every ``sync_every`` blocks. So the stage timers
 time the host's enqueue of each stage, not the device's work, as the
@@ -30,7 +30,9 @@ one span a stage and ``publish:audio-frame``; inside them every
 ``drain.readback`` (every host wait on the card) and ``drain.fec``. The
 counters are ``session.blocks``, ``session.retries``,
 ``session.framer_bytes`` (the bytes the framer copied while each block
-was framed), ``drain.runs`` (drains with blocks pending), ``drain.hits``
+was framed), ``session.h2d_pinned`` (a raw block framed into pinned
+memory, uploaded from there and converted by the card's kernel),
+``drain.runs`` (drains with blocks pending), ``drain.hits``
 (windows decoded), ``drain.good``, ``drain.failed``, one of
 ``telemetry.graph_replays``, ``telemetry.graph_captures`` and
 ``telemetry.graph_eager`` for each step of a ``TelemetryStage`` or a
@@ -98,7 +100,9 @@ class Session:
     fan-out, JavaAudio.java:261-265), uploaded as int16 (half the bytes
     of a float pair) and converted on the device
     (:func:`jsdr_tpu_torch.io.convert_device.s16_to_cf`), with ``i_corr``
-    / ``q_corr`` applied there (JavaAudio.java:275-293 semantics).
+    / ``q_corr`` applied there (JavaAudio.java:275-293 semantics). On a
+    card they are framed straight into pinned host memory, go up in one
+    asynchronous copy and are converted by one kernel.
 
     ``device`` (default ``"cuda"``, through
     :func:`~jsdr_tpu_torch.runtime.device.require_device`) is where blocks
@@ -141,21 +145,27 @@ class Session:
             self.pubsub.publish(topic, value)
 
     def _blocks(self):
-        """(raw, block) for every whole block of the source."""
-        from ..io.framer import BlockFramer, RawBlockFramer
+        """(block, raw) for every whole block of the source: int16 chunks
+        are framed into tensors
+        (:class:`~jsdr_tpu_torch.io.convert_device.TensorRawFramer`,
+        pinned host memory on a card), and ``raw`` is the tensor that
+        ``block`` views; complex chunks give ``raw`` None."""
+        from ..io.convert_device import TensorRawFramer
+        from ..io.framer import BlockFramer
 
         framer = None
         copied = 0
         for chunk in self.source:
             if framer is None:
                 raw = np.asarray(chunk).dtype == np.int16
-                framer = (RawBlockFramer(self.block_samples, self.channels)
-                          if raw else BlockFramer(self.block_samples))
+                framer = (TensorRawFramer(self.block_samples, self.channels,
+                                          self.device) if raw
+                          else BlockFramer(self.block_samples))
             for block in framer.push(chunk):
                 self.tracer.count("session.framer_bytes",
                                   framer.copied_bytes - copied)
                 copied = framer.copied_bytes
-                yield raw, block
+                yield block, framer.tensor if raw else None
 
     def run(self, stages: list["Stage"], max_blocks: Optional[int] = None):
         """Drive blocks through the stages until the source ends."""
@@ -175,7 +185,7 @@ class Session:
             tr.spans_on = spans_on
 
     def _run(self, stages, max_blocks):
-        from ..io.convert_device import s16_to_cf, upload_cf, upload_raw
+        from ..io.convert_device import s16_to_cf, upload_cf
 
         tr = self.tracer
         # a caller's own timers get the stage calls; the tracer's stage
@@ -186,18 +196,20 @@ class Session:
         while True:
             tr.begin_block(n)
             with tr.span("session.frame"):
-                raw, block = next(blocks, (None, None))
+                block, raw = next(blocks, (None, None))
             if block is None:
                 break
             with (outer("h2d", samples=self.block_samples),
                   tr.stage("h2d", samples=self.block_samples)):
-                if raw:
+                if raw is not None:
                     # raw fan-out precedes conversion — recorder taps
                     # see the exact capture bytes (recorder.java:66-74)
                     self.publish("raw-block", block)
-                    dev = s16_to_cf(upload_raw(block, self.device),
-                                    self.i_corr, self.q_corr,
+                    up = raw.to(self.device, non_blocking=True)
+                    dev = s16_to_cf(up, self.i_corr, self.q_corr,
                                     channels=self.channels)
+                    if up.is_cuda:
+                        tr.count("session.h2d_pinned")
                 else:
                     dev = upload_cf(block, self.device)
             for stage in stages:

@@ -41,6 +41,7 @@ from jsdr_tpu_torch.fec.encode import encode_fec40
 from jsdr_tpu_torch.fec.rs import decode_rs
 from jsdr_tpu_torch.fec.viterbi import viterbi27_bytes
 from jsdr_tpu_torch.io import sources
+from jsdr_tpu_torch.io.convert_device import s16_to_cf
 from jsdr_tpu_torch.ops import _build
 from jsdr_tpu_torch.ops.cplx import CF
 from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
@@ -337,10 +338,11 @@ def test_graph_step_key_separates_the_step_functions(stub_graphs):
 
 
 # every kernel wrapper of the package that counts its launches: kernels 3
-# and 4 (the spectrum step's), 1, 2, 5, 6, A and B's three
+# and 4 (the spectrum step's), 1, 2, 5, 6, A and B's three, and the
+# Session's S16LE conversion
 LAUNCHING = [spectrum_front_fused, spectrum_fused, mix_decimate,
              timing_recover_batch, psd_waterfall, mix_decimate_mf,
-             viterbi27_bytes, fec_check, decode_rs, encode_fec40]
+             viterbi27_bytes, fec_check, decode_rs, encode_fec40, s16_to_cf]
 
 
 @pytest.mark.parametrize("kernel", LAUNCHING)
