@@ -11,10 +11,12 @@ main paths: the FUNcube telemetry decode (``bpsk_block_batch`` +
 ``fec_decode``) over the committed goldens and over 128 concurrent
 demodulator streams at 96 kS/s (phases 5-6); the flagship spectrum +
 telemetry step (``bpsk_block_batch_spectrum``) over 128 streams in 4.8 s
-blocks at 96 kS/s, then one 1 s block that takes its staged branch
-(phase 8); and the streaming Session (``runtime.executor``: 128
-demodulator instances with the fused matched filter on one 96 kS/s
-stream of raw int16 chunks, beside the PSD + waterfall stage, with a
+blocks at 96 kS/s, then one 1 s block that only the card's rule merges,
+against the staged pair, and the 192 kS/s station's 0.1 s blocks (one
+FFT block a row) through kernel 3 against the staged pair (phase 8); and
+the streaming Session (``runtime.executor``: 128 demodulator instances
+with the fused matched filter on one 96 kS/s stream of raw int16 chunks,
+beside the PSD + waterfall stage, with a
 checkpoint and resume; phase 11, after its S16LE conversion kernel
 against the plain chain at the benchmark cells' block sizes); and every
 tuning mode of the front end
@@ -65,13 +67,14 @@ MIX_CASES = ((128, 96000, 96000), (64, 192000, 192000), (13, 95440, 96000),
              (64, 134400, 134400), (32, 384000, 384000))
 # kernels 3 and 4: (streams, samples, rate): the flagship shape (4.8 s
 # blocks at 96 k, bench.py's), 192 k, a ragged stream count, the 1 s
-# block that takes the staged branch, 134.4 k (n1 = 105 = 3*5*7: the
-# FFT's generic radix), and the 4-CTA cluster's rates: 384 k (n1 = 300),
-# 313.6 k (n1 = 245 = 5*7^2: generic radix 49) and 655.36 k (n1 = 512,
-# the reference's largest)
+# block (staged by the reference's rule, merged by the card's), 134.4 k
+# (n1 = 105 = 3*5*7: the FFT's generic radix), the 4-CTA cluster's
+# rates: 384 k (n1 = 300), 313.6 k (n1 = 245 = 5*7^2: generic radix 49)
+# and 655.36 k (n1 = 512, the reference's largest), and the 192 k
+# station's 2 tabs in 0.1 s blocks (one FFT block a row: a grid of 2 CTAs)
 SPEC_CASES = ((128, 460800, 96000), (256, 460800, 192000), (13, 96000, 96000),
               (128, 96000, 96000), (64, 134400, 134400), (32, 384000, 384000),
-              (32, 313600, 313600), (32, 655360, 655360))
+              (32, 313600, 313600), (32, 655360, 655360), (2, 19200, 192000))
 # kernel 4 alone at one CTA's largest n1 (ONE_CTA_MAX_N1 = 225: n = 28800 at
 # 288 kS/s; above it a block takes a 4-CTA cluster): streams, each 1 s
 K4_STREAMS = 32
@@ -316,7 +319,8 @@ def main() -> int:
         dict(name="spectrum_front_fused", route="cuda",
              source="jsdr_tpu_torch/ops/csrc/spec_front.cu",
              replaces="jsdr_tpu/ops/pallas_kernels.py:700",
-             launches=flagship["spectrum_front_fused"], **k3),
+             launches=flagship["spectrum_front_fused"],
+             one_block_a_row=flagship["one_block_a_row"], **k3),
         dict(name="spectrum_waterfall", route="cuda",
              source="jsdr_tpu_torch/ops/csrc/spectrum_wf.cu",
              replaces="jsdr_tpu/ops/pallas_kernels.py:275",
@@ -1041,14 +1045,19 @@ def phase_flagship(torch, np, dev, rng, tag, k3):
     750 Hz steps), one AO-40 frame each at its own offset, 2 chained
     4.8 s blocks (the merged branch: kernel 3 once per step, kernels 4 and
     1 never), one FEC drain per block; every payload must decode exactly
-    once, bit-exact. Then one 1 s block through the same entry point (the
-    staged branch: kernels 4, 1 and 2 once each), whose waterfall must
-    equal the merged kernel's on the same samples. Last, 10 timed and 3
-    profiled steps of each branch (:func:`step_times`). Returns the launch
-    counts of both counted runs."""
+    once, bit-exact. Then one 1 s block through the same entry point
+    (T = 10 n: kernel 3 by the card's rule alone), bit-equal to the staged
+    pair on the same block (kernels 4, 1 and 2 once each), its waterfall
+    equal to the 4.8 s block's on the same samples, both steps timed, and
+    kernel 3's device time there beside kernels 4 and 1's
+    (:func:`one_second_kernels_ms`); and kernel 3 at one
+    FFT block a row (:func:`one_block_a_row`). Last, 10 timed and 3
+    profiled steps of the merged step and of the staged pair
+    (:func:`step_times`). Returns the launch counts of the counted runs."""
     from jsdr_tpu_torch.demod.bpsk import (BpskConfig,
                                            bpsk_block_batch_spectrum,
-                                           bpsk_init_batch)
+                                           bpsk_init_batch,
+                                           spectrum_step_merged)
     from jsdr_tpu_torch.fec.decoder import fec_decode
     from jsdr_tpu_torch.io.sources import synth_bpsk_stream
     from jsdr_tpu_torch.ops.cplx import CF, from_complex
@@ -1149,24 +1158,47 @@ def phase_flagship(torch, np, dev, rng, tag, k3):
     need(far == 0, f"flagship: {far} FFT blocks inside frames peak away "
          "from the carrier")
 
-    # one 1 s block through the same entry point: the staged branch
+    # one 1 s block through the same entry point: T = 10 n is no multiple
+    # of the reference's 4 n, so only the card's rule takes kernel 3; the
+    # staged pair (kernels 4, 1, 2) on the same block must give its bits
     x1 = CF(blocks[0].re[:, :rate].contiguous(),
             blocks[0].im[:, :rate].contiguous())
+    need(spectrum_step_merged(cfg, rate, tunings, dev)
+         and not spectrum_step_merged(cfg, rate, tunings),
+         "1 s block at 96 kS/s: want the card's rule alone to merge it")
     reset()
     t0 = time.perf_counter()
-    spec1, _out1, st1 = bpsk_block_batch_spectrum(
+    spec1, out1, st1 = bpsk_block_batch_spectrum(
         x1, cfg, bpsk_init_batch(cfg, s, dev), tunings)
+    torch.cuda.synchronize()
+    merged_ms = (time.perf_counter() - t0) * 1e3
+    one_s = read()
+    need(one_s == {"spectrum_front_fused": 1, "spectrum_fused": 0,
+                   "mix_decimate": 0, "timing_recover_batch": 1},
+         f"1 s block launches {one_s}: want kernel 3 and the timing kernel "
+         "once each, kernels 4 and 1 never")
+    reset()
+    t0 = time.perf_counter()
+    spec_p, out_p, st_p = staged_pair(x1, cfg, bpsk_init_batch(cfg, s, dev),
+                                      tunings)
     torch.cuda.synchronize()
     staged_ms = (time.perf_counter() - t0) * 1e3
     staged = read()
     need(staged == {"spectrum_front_fused": 0, "spectrum_fused": 1,
                     "mix_decimate": 1, "timing_recover_batch": 1},
-         f"staged 1 s block launches {staged}: want kernels 4, 1 and the "
+         f"staged pair launches {staged}: want kernels 4, 1 and the "
          "timing kernel once each, kernel 3 never")
+    need(same_tree(torch, (spec1, out1, st1), (spec_p, out_p, st_p)),
+         "1 s block: kernel 3's outputs or state differ from the staged "
+         "pair's")
     need(torch.equal(spec1.wf, specs[0].wf[:rate // n])
          and torch.equal(spec1.peak_db, specs[0].peak_db[:, :rate // n])
          and torch.equal(spec1.peak_freq, specs[0].peak_freq[:, :rate // n]),
-         "staged 1 s block: waterfall differs from the merged kernel's")
+         "1 s block: waterfall differs from the 4.8 s block's")
+    # the device time of the 1 s block's spectrum kernels: kernel 3 against
+    # the staged pair's kernels 4 and 1, each behind a sleep kernel
+    k3_1s_ms, pair_1s_ms = one_second_kernels_ms(torch, dev, x1, cfg, st1,
+                                                 tunings)
 
     print(f"{tag} flagship: all {s} payloads decoded bit-exact ({failed} "
           f"failed sync hits); bpsk_block_batch_spectrum "
@@ -1175,8 +1207,13 @@ def phase_flagship(torch, np, dev, rng, tag, k3):
           f"{', '.join(f'{v:.1f}' for v in fec_ms)} ms per block; "
           f"launches {merged}; kernel 3 {k3['ms']:.3f} ms/step (event-timed "
           f"at this shape in phase 7)")
-    print(f"{tag} staged 1 s block (S={s}, T={rate}): {staged_ms:.3f} ms, "
-          f"launches {staged}; waterfall equal to the merged kernel's")
+    print(f"{tag} 1 s block (S={s}, T={rate}): kernel 3 by the card's rule "
+          f"({merged_ms:.3f} ms a step on the host clock, kernel 3 "
+          f"{k3_1s_ms:.4f} ms of device time), launches {one_s}, bit-equal to "
+          f"the staged pair ({staged_ms:.3f} ms a step, kernels 4 and 1 "
+          f"{pair_1s_ms:.4f} ms of device time, launches {staged}); "
+          f"waterfall equal to the 4.8 s block's")
+    one_block = one_block_a_row(torch, np, dev, tag, reset, read)
 
     # more steps of both branches for their time, spread and split
     state = [st, 0]
@@ -1195,14 +1232,135 @@ def phase_flagship(torch, np, dev, rng, tag, k3):
     state = [st1, 0]
 
     def staged_step():
-        state[0] = bpsk_block_batch_spectrum(xs1[state[1] % 2], cfg,
-                                             state[0], tunings)[2]
+        state[0] = staged_pair(xs1[state[1] % 2], cfg, state[0], tunings)[2]
         state[1] += 1
 
     step_times(torch, staged_step, 10, 3, tag,
-               f"staged step bpsk_block_batch_spectrum S={s} T={rate}")
+               f"staged pair (kernels 4, 1, 2) S={s} T={rate}")
     return {"spectrum_front_fused": merged["spectrum_front_fused"],
-            "spectrum_fused": staged["spectrum_fused"]}
+            "spectrum_fused": staged["spectrum_fused"],
+            "one_block_a_row": one_block}
+
+
+def staged_pair(iq, cfg, st, tunings):
+    """The spectrum-telemetry step's staged branch called directly: kernel
+    4 over every row, then ``bpsk_block_batch`` (kernel 1 in pattern
+    mode), as ``bpsk_block_batch_spectrum`` runs it where kernel 3 does
+    not: (WaterfallOut, BpskBlockOut, state)."""
+    from jsdr_tpu_torch.demod.bpsk import _waterfall_out, bpsk_block_batch
+    from jsdr_tpu_torch.ops.spectrum_fused import spectrum_waterfall
+
+    wf, mx, idx = spectrum_waterfall(iq, cfg.rate // 10)
+    out, st = bpsk_block_batch(iq, cfg, st, tunings)
+    return _waterfall_out(wf, mx, idx, cfg.rate), out, st
+
+
+def one_second_kernels_ms(torch, dev, x, cfg, st, tunings):
+    """Device ms a launch, behind a sleep kernel (:func:`device_ms`), of
+    the spectrum kernels a block ``x`` runs: kernel 3 (the merged branch)
+    and kernels 4 then 1 (the staged pair's), at ``st``'s phases."""
+    from jsdr_tpu_torch.demod.bpsk import (HOWARD_FUDGE_FACTOR, _ds_taps,
+                                           _nco_pattern, tunings_to_nu)
+    from jsdr_tpu_torch.ops.mix_decimate import mix_decimate
+    from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
+    from jsdr_tpu_torch.ops.spectrum_fused import spectrum_waterfall
+
+    n, rate = cfg.rate // 10, cfg.rate
+    tu = torch.as_tensor(tunings_to_nu(np.asarray(tunings)),
+                         dtype=torch.int64, device=dev)
+    cos_pat, sin_pat = _nco_pattern(st.tu_phase, tu, rate)
+    taps = _ds_taps(dev)
+    k3 = device_ms(torch, lambda x_: spectrum_front_fused(
+        x_, n, cos_pat, sin_pat, taps, cfg.decim, st.ds_tail,
+        gain=HOWARD_FUDGE_FACTOR), [(x,)], 20)
+
+    def pair(x_):
+        spectrum_waterfall(x_, n)
+        return mix_decimate(x_, cos_pat, sin_pat, taps, cfg.decim,
+                            st.ds_tail, HOWARD_FUDGE_FACTOR)[0]
+
+    return k3, device_ms(torch, pair, [(x,)], 20)
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two trees of tensors (outputs, states) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        def bits(x):
+            # flat: a contiguous tensor with a size-1 last dim may keep
+            # another stride there, which a dtype view refuses
+            x = x.contiguous().reshape(-1)
+            return x.view(torch.uint8) if x.is_floating_point() else x
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(bits(a), bits(b)))
+    return all(same_tree(torch, x, y) for x, y in zip(a, b, strict=True))
+
+
+def one_block_a_row(torch, np, dev, tag, reset, read) -> dict:
+    """Kernel 3 at one FFT block a row: the 192 kS/s station's 2 tabs
+    (12 and 25.5 kHz) in java-sdr's 0.1 s blocks (T = n = 19,200, S = 2:
+    a grid of 2 CTAs), which only the card's rule merges. 12 chained
+    blocks of a frame train through ``bpsk_block_batch_spectrum`` and
+    through the staged pair, each carrying its own state: every block's
+    waterfall, outputs and state equal bit for bit. Then kernel 3's
+    device time at that shape behind a sleep kernel. Returns its launches
+    and device ms for the kernels line."""
+    from jsdr_tpu_torch.demod.bpsk import (BpskConfig,
+                                           bpsk_block_batch_spectrum,
+                                           bpsk_init_batch,
+                                           spectrum_step_merged)
+    from jsdr_tpu_torch.io.sources import synth_bpsk_stream, synth_noise
+    from jsdr_tpu_torch.ops.cplx import from_complex
+    from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
+    from jsdr_tpu_torch.ops.spectrum_fused import wf_group_for
+
+    rate, tabs, n_blocks = 192000, np.array([12000.0, 25500.0]), 12
+    n = rate // 10
+    cfg = BpskConfig(rate=rate)
+    need(spectrum_step_merged(cfg, n, tabs, dev)
+         and not spectrum_step_merged(cfg, n, tabs),
+         "0.1 s block at 192 kS/s: want the card's rule alone to merge it")
+    sig = synth_noise(n * n_blocks, amplitude=0.05, seed=25)
+    for i, carrier in enumerate(tabs):
+        tab = synth_bpsk_stream(
+            np.full((1, 256), 0x5A + i, np.uint8), rate=rate,
+            carrier_offset=float(carrier), amplitude=0.3,
+            preamble_bits=40 + 60 * i, seed=i)[:len(sig)]
+        sig[:len(tab)] += tab
+    rows = [from_complex(np.broadcast_to(sig[b * n:(b + 1) * n],
+                                         (2, n)).copy(), dev)
+            for b in range(n_blocks)]
+    st_m = st_s = bpsk_init_batch(cfg, 2, dev)
+    reset()
+    for b, x in enumerate(rows):
+        got = bpsk_block_batch_spectrum(x, cfg, st_m, tabs)
+        want = staged_pair(x, cfg, st_s, tabs)
+        need(same_tree(torch, got, want), f"one FFT block a row: block {b}'s "
+             "waterfall, outputs or state differ from the staged pair's")
+        st_m, st_s = got[2], want[2]
+    launches = read()
+    need(launches == {"spectrum_front_fused": n_blocks,
+                      "spectrum_fused": n_blocks, "mix_decimate": n_blocks,
+                      "timing_recover_batch": 2 * n_blocks},
+         f"one FFT block a row: launches {launches}")
+    need(int(st_m.counters[0, 0]) == n_blocks * n,
+         "one FFT block a row: raw counter wrong")
+    from jsdr_tpu_torch.demod.bpsk import (HOWARD_FUDGE_FACTOR, _ds_taps,
+                                           _nco_pattern, tunings_to_nu)
+
+    tu = torch.as_tensor(tunings_to_nu(tabs), dtype=torch.int64, device=dev)
+    cos_pat, sin_pat = _nco_pattern(st_m.tu_phase, tu, rate)
+    ms = device_ms(torch, lambda x: spectrum_front_fused(
+        x, n, cos_pat, sin_pat, _ds_taps(dev), cfg.decim, st_m.ds_tail,
+        gain=HOWARD_FUDGE_FACTOR), [(x,) for x in rows], 50)
+    f4, b4 = spec_work(2, n, n, wf_group_for(n))
+    f1, b1 = front_work(2, n, cfg.decim)
+    bound_ms, bound_by = bound(f4 + f1, b4 + b1 - 8.0 * 2 * n)
+    print(f"{tag} kernel 3 at one FFT block a row (S=2, T={n}, 2 CTAs, "
+          f"192 kS/s): 12 chained blocks bit-equal to the staged pair "
+          f"(kernels 4 and 1); device {ms:.4f} ms a launch (behind a sleep "
+          f"kernel, 50 launches), bound {bound_ms:.5f} ms by {bound_by}")
+    return {"shape": [2, n], "launches": n_blocks, "device_ms": ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_psd_waterfall(torch, np, dev, tag):

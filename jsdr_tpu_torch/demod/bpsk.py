@@ -918,16 +918,23 @@ class WaterfallOut(NamedTuple):
     peak_db: torch.Tensor    # [S, T//n]
 
 
-def spectrum_step_merged(cfg: BpskConfig, t_len: int, tunings) -> bool:
-    """The reference's rule for the merged kernel
+def spectrum_step_merged(cfg: BpskConfig, t_len: int, tunings,
+                         device=None) -> bool:
+    """Whether the spectrum-telemetry step runs the merged kernel 3.
+
+    Without a device, or on the CPU, the reference's rule
     (``jsdr_tpu.demod.bpsk.bpsk_block_batch_spectrum``): manual tuning
     only, no fused matched filter, T a multiple of the merged kernel's
     chunk (``sf_geometry``: 4 FFT blocks at 96 k, 2 at 192 k),
-    128-periodic tunings, and T a multiple of 8*decim."""
+    128-periodic tunings, and T a multiple of 8*decim. On a CUDA device
+    the card's rule: the same, with T a multiple of one FFT block
+    (n = rate/10) in place of the chunk, since the CUDA kernel takes one
+    FFT block a CTA (0.1 s blocks at either rate, 1 s blocks at 96 k)."""
     n = cfg.rate // 10
-    sf_blocks, _ = sf_geometry(n, cfg.decim)
+    card = device is not None and torch.device(device).type == "cuda"
+    chunk = n if card else sf_geometry(n, cfg.decim)[0] * n
     return (not cfg.dofft and not cfg.fuse_mf
-            and t_len % (sf_blocks * n) == 0
+            and t_len % chunk == 0
             and pattern_mix_ok(tunings, cfg.rate)
             and t_len % (8 * cfg.decim) == 0)
 
@@ -949,7 +956,8 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
     by side on every block). FFT blocks are n = rate/10 samples.
 
     Returns (WaterfallOut, BpskBlockOut, new_states). When
-    :func:`spectrum_step_merged` holds, one kernel
+    :func:`spectrum_step_merged` holds on the input's device (the card's
+    rule on a card, the reference's elsewhere), one kernel
     (:func:`jsdr_tpu_torch.ops.spectrum_front.spectrum_front_fused`)
     reads the input once for both the waterfall and the front end;
     otherwise the staged pair runs (``spectrum_waterfall``, then
@@ -964,7 +972,7 @@ def bpsk_block_batch_spectrum(iq: CF, cfg: BpskConfig, states: BpskState,
     tun = _block_tunings(iq, cfg, tunings)
     n = cfg.rate // 10
     iq = CF(iq.re.contiguous(), iq.im.contiguous())
-    if not spectrum_step_merged(cfg, t_len, tun):
+    if not spectrum_step_merged(cfg, t_len, tun, dev):
         # staged pair (two input reads)
         wf, mx, idx = spectrum_waterfall(iq, n, window=window)
         out, new_states = bpsk_block_batch(iq, cfg, states, tun)

@@ -30,8 +30,9 @@ def sf_geometry(n: int, m: int) -> tuple[int, int]:
     """The reference's merged-kernel grid geometry: (FFT blocks per grid
     step, decimated outputs per sub-chunk) — 4 blocks at 96 k, 2 at 192 k
     (sized for the TPU's VMEM). The CUDA kernel takes one FFT block per
-    CTA and does not need it; ``bpsk_block_batch_spectrum`` keeps it as
-    the reference's eligibility rule (T a multiple of blocks * n)."""
+    CTA and does not need it: ``demod.bpsk.spectrum_step_merged`` keeps it
+    as the reference's eligibility rule (T a multiple of blocks * n) off a
+    card, and asks only T a multiple of n on one."""
     return (4, 1280) if 4 * n <= 40_000 else (2, 640)
 
 

@@ -627,7 +627,7 @@ class TelemetryStage(Stage):
 class SpectrumTelemetryStage(TelemetryStage):
     """Spectrum + telemetry in ONE device step
     (:func:`jsdr_tpu_torch.demod.bpsk.bpsk_block_batch_spectrum`: the
-    merged kernel reads the input once where the reference's rule allows,
+    merged kernel reads the input once where the device's rule allows,
     else the staged pair runs): the fft.java + FUNcubeBPSKDemod.java pair
     of every reference block, as a single production stage. Publishes
     'waterfall-line' (dB-decimated natural-order lines of instance 0) and
@@ -643,8 +643,10 @@ class SpectrumTelemetryStage(TelemetryStage):
     ``telemetry.graph_eager`` (what the step did), the front end's
     ``telemetry.front.<mode>``, and ``spectrum_telemetry.merged`` or
     ``spectrum_telemetry.staged`` (as :func:`~jsdr_tpu_torch.demod.bpsk.
-    spectrum_step_merged` rules), decided once a tuning set and block
-    length."""
+    spectrum_step_merged` rules on the stage's device), with
+    ``spectrum_telemetry.merged_card`` beside ``.merged`` where only the
+    card's rule admits the block length, decided once a tuning set and
+    block length."""
 
     name = "spectrum-telemetry"
 
@@ -667,14 +669,18 @@ class SpectrumTelemetryStage(TelemetryStage):
     def _decide_counters(self, t_len: int) -> tuple:
         """The front end's counter, and ``spectrum_telemetry.merged`` or
         ``spectrum_telemetry.staged`` as :func:`~jsdr_tpu_torch.demod.
-        bpsk.spectrum_step_merged` rules (the merged kernel's front end is
-        the pattern mode's)."""
+        bpsk.spectrum_step_merged` rules on the stage's device (the merged
+        kernel's front end is the pattern mode's); beside ``.merged``,
+        ``spectrum_telemetry.merged_card`` where only the card's rule
+        admits the block length (the reference's rule would stage it)."""
         from ..demod.bpsk import spectrum_step_merged
-        merged = spectrum_step_merged(
-            self.cfg, t_len, self.tunings or [self.cfg.tuning] * self.n)
+        tun = self.tunings or [self.cfg.tuning] * self.n
+        merged = spectrum_step_merged(self.cfg, t_len, tun, self.device)
+        card_only = merged and not spectrum_step_merged(self.cfg, t_len, tun)
         return (*super()._decide_counters(t_len),
                 "spectrum_telemetry.merged" if merged
-                else "spectrum_telemetry.staged")
+                else "spectrum_telemetry.staged",
+                *(("spectrum_telemetry.merged_card",) if card_only else ()))
 
     def _queue(self, out, session: Session):
         self._spec = out[0]          # the waterfall the next drain shows

@@ -12,9 +12,9 @@ the two step functions, a replay counts the launches of every
 registered kernel wrapper, and ``SpectrumStage`` captures once, then
 replays, each block read back into memory of its own. Tests marked ``card`` run the
 graphed stages against the eager :func:`bpsk_block_batch` and
-:func:`bpsk_block_batch_spectrum`, and the graphed ``SpectrumStage``
-against one with an eager step, on a card, bit for bit, and skip
-without one:
+:func:`bpsk_block_batch_spectrum`, the graphed ``SpectrumStage``
+against one with an eager step, and kernel 3 at one FFT block a row
+against the staged pair, on a card, bit for bit, and skip without one:
 ``python -m pytest --noconftest -m card tests/test_torch_graph_step.py``
 (this file imports no JAX, so it runs where the JAX package is absent)."""
 
@@ -49,6 +49,7 @@ from jsdr_tpu_torch.ops.mix_decimate_mf import mix_decimate_mf
 from jsdr_tpu_torch.ops.psd_waterfall import psd_waterfall
 from jsdr_tpu_torch.ops.spectrum_front import spectrum_front_fused
 from jsdr_tpu_torch.ops.spectrum_fused import (_tables_on, spectrum_fused,
+                                              spectrum_waterfall,
                                               waterfall_natural_order)
 from jsdr_tpu_torch.ops.timing_kernel import timing_recover_batch
 from jsdr_tpu_torch.runtime.device import holding
@@ -112,7 +113,9 @@ def _equal(a, b) -> bool:
     """Two trees of tensors (outputs or states) equal bit for bit."""
     if isinstance(a, torch.Tensor):
         def bits(x):
-            x = x.contiguous()
+            # flat: a contiguous tensor with a size-1 last dim may keep
+            # another stride there, which a dtype view refuses
+            x = x.contiguous().reshape(-1)
             return x.view(torch.uint8) if x.is_floating_point() else x
         return (a.dtype == b.dtype and a.shape == b.shape
                 and torch.equal(bits(a), bits(b)))
@@ -768,9 +771,12 @@ def test_graph_step_in_each_front_end_mode(card, case):
 
 
 # SpectrumTelemetryStage's two branches: rate, block samples, tabs, merged
+# on a card (the staged case's tabs lie off the 750 Hz grid, so neither
+# rule merges it; the 0.1 s case only the card's rule merges)
 SPECTRUM = {
     "merged-192k": (192000, 921600, (12000.0, 25500.0), True),
-    "staged-96k": (96000, 96000, (12000.0, 24000.0), False),
+    "staged-96k": (96000, 96000, (12730.0, 24730.0), False),
+    "merged-192k-100ms": (192000, 19200, (12000.0, 25500.0), True),
 }
 TOPICS = ("waterfall-line", "fft-peak", "telemetry-frame",
           "telemetry-counters")
@@ -800,18 +806,23 @@ def _spectrum_session(sig, size, dev):
 def test_graphed_spectrum_stage_is_bit_exact_to_the_eager_step(card, case):
     """12 blocks of two tabs through a graphed ``SpectrumTelemetryStage``
     (sync_every 4) in a Session, on the merged kernel 3 (192 kS/s in 4.8 s
-    blocks) or the staged pair (96 kS/s in 1 s blocks): every pending
-    block's outputs and the drained block's waterfall at each drain, and
-    the carried state after every block, equal the eager
+    blocks, or in 0.1 s blocks, one FFT block a row, by the card's rule
+    alone) or the staged pair (96 kS/s in 1 s blocks, off-grid tabs):
+    every pending block's outputs and the drained block's waterfall at
+    each drain, and the carried state after every block, equal the eager
     :func:`bpsk_block_batch_spectrum`'s bit for bit, through a retry (the
     step's first attempt at block 6 raises after its replay); the
     published 'waterfall-line', 'fft-peak', 'telemetry-frame' and
     'telemetry-counters' equal those of the same stage with an eager step;
-    and the branch's spectrum kernel counts a launch a step."""
+    the branch's spectrum kernel counts a launch a step; and the stage
+    counts ``spectrum_telemetry.merged_card`` a block where only the card's
+    rule merges. 12 blocks of 0.1 s hold no whole frame, so that case
+    publishes no good one."""
     rate, size, tabs, merged = SPECTRUM[case]
     n, fail_at = 12, 6
     cfg = B.BpskConfig(rate=rate)
-    assert B.spectrum_step_merged(cfg, size, tabs) == merged
+    assert B.spectrum_step_merged(cfg, size, tabs, card) == merged
+    card_only = merged and not B.spectrum_step_merged(cfg, size, tabs)
     sig = _station(rate, tabs, n * size / rate)
     eager_spec, eager_out, eager_st = [], [], []
     st = B.bpsk_init_batch(cfg, 2, card)
@@ -843,6 +854,9 @@ def test_graphed_spectrum_stage_is_bit_exact_to_the_eager_step(card, case):
     assert s.dropped_blocks == {} and s.tracer.counters["session.retries"] == 1
     assert ran[0] == "eager" and ran.count("eager") == 1
     assert ran[fail_at] == "replay"
+    # a step a block, the retry's too
+    assert s.tracer.counters.get("spectrum_telemetry.merged_card", 0) == (
+        n + 1 if card_only else 0)
 
     r, want = _spectrum_session(sig, size, card)
     eager = SpectrumTelemetryStage(cfg, tabs, device=card)
@@ -853,8 +867,36 @@ def test_graphed_spectrum_stage_is_bit_exact_to_the_eager_step(card, case):
     assert [t for t, _ in got] == [t for t, _ in want]
     assert all(_same_topic(a, b) for (_, a), (_, b) in zip(got, want))
     frames = [v for t, v in got if t == "telemetry-frame"]
-    assert any(f["ok"] for f in frames)
+    assert any(f["ok"] for f in frames) == (n * size / rate > 4.4)
     assert sum(t == "waterfall-line" for t, _ in got) == n // 4
+
+
+@pytest.mark.card
+def test_kernel_3_at_one_fft_block_a_row_equals_the_staged_pair(card):
+    """At 192 kS/s in java-sdr's 0.1 s blocks (T = n = 19,200, S = 2: a
+    grid of 2 CTAs, no cluster) the step runs kernel 3 by the card's rule
+    alone; over 12 chained blocks of a frame train, each branch carrying
+    its own state, every block's waterfall, peaks, outputs and state
+    equal the staged pair's (``spectrum_waterfall``, then
+    :func:`bpsk_block_batch`: kernels 4 and 1) bit for bit, and kernel 3
+    launches once a block."""
+    rate, size, tabs, _ = SPECTRUM["merged-192k-100ms"]
+    n = 12
+    cfg = B.BpskConfig(rate=rate)
+    sig = _station(rate, tabs, n * size / rate)
+    st_m = st_s = B.bpsk_init_batch(cfg, 2, card)
+    before = spectrum_front_fused.launches
+    for b in range(n):
+        blk = _block(sig, b, card, size)
+        x = CF(*(v.expand(2, -1).contiguous() for v in blk))
+        spec, out_m, st_m = B.bpsk_block_batch_spectrum(x, cfg, st_m, tabs)
+        wf, mx, idx = spectrum_waterfall(x, size)
+        out_s, st_s = B.bpsk_block_batch(x, cfg, st_s, tabs)
+        assert _equal(spec, B._waterfall_out(wf, mx, idx, rate)), b
+        assert _equal(out_m, out_s), b
+        assert _equal(st_m, st_s), b
+    assert spectrum_front_fused.launches - before == n
+    assert int(st_m.counters[0, 0]) == n * size
 
 
 class _RaisesOnce(GraphStep):
