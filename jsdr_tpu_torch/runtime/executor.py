@@ -33,7 +33,9 @@ counters are ``session.blocks``, ``session.retries``,
 was framed), ``session.h2d_pinned`` (a raw block framed into pinned
 memory, uploaded from there and converted by the card's kernel),
 ``drain.runs`` (drains with blocks pending), ``drain.hits``
-(windows decoded), ``drain.good``, ``drain.failed``, one of
+(windows decoded), ``drain.good``, ``drain.failed``, ``drain.waits``
+(the drain's host waits on the card: one, and one more where it
+decoded), one of
 ``telemetry.graph_replays``, ``telemetry.graph_captures`` and
 ``telemetry.graph_eager`` for each step of a ``TelemetryStage`` or a
 ``SpectrumTelemetryStage`` (a replayed CUDA graph, a new one, or eager
@@ -568,52 +570,59 @@ class TelemetryStage(Stage):
             self._drain(session)
 
     def _drain(self, session: Session):
-        from ..fec.decoder import fec_decode
+        """Publish what the pending blocks found, with at most two host
+        waits on the card (:func:`_wait`). One copy reads back, into host
+        memory of this drain's own, every pending block's ``n_hits`` and
+        ``hit_corr``, the counters and what :meth:`_shown` adds; the
+        (block, instance, hit) list comes from ``n_hits`` on the host.
+        Only where it holds a hit, one ``index_select`` takes those
+        windows from the stacked pending windows, :func:`~jsdr_tpu_torch.
+        fec.decoder.fec_decode` decodes them alone, and a second copy
+        reads back ``ok``, ``rc`` and ``payload``: the card decodes while
+        the first copy's topics are published."""
         pending, self._pending = self._pending, []
+        shown = self._shown()
         if not pending:
             return
         tr = session.tracer
         tr.count("drain.runs")
+        n_p, n_s = len(pending), len(shown)
+        parts = [self.state.counters, *shown,
+                 *(o.n_hits for o in pending), *(o.hit_corr for o in pending)]
+        dev = self.state.counters.device
+        host = _to_host(_pack(parts))
+        _wait(dev, tr)
+        counters, *got = _unpack(host, parts)
+        n_hits = np.stack(got[n_s:n_s + n_p])           # [P, S]
+        hit_corr = np.stack(got[n_s + n_p:])             # [P, S, max_hits]
+        # every hit of every pending block, in (block, instance, hit)
+        # order; mesh padding instances publish nothing
+        _, n, max_hits = hit_corr.shape
+        flat = np.flatnonzero((np.arange(max_hits) < n_hits[..., None])
+                              & (np.arange(n) < self.n_real)[:, None])
+        tr.count("drain.hits", len(flat))
+        if len(flat):
+            decoded = self._decode(pending, flat, tr)
+        self._publish_shown(session, *got[:n_s])
         tunings = self.tunings or [self.cfg.tuning]
         # live raw/ds/bit/sync counters, the reference's on-screen
         # instrumentation (FUNcubeBPSKDemod.java:219-228)
-        with tr.span("drain.readback"):
-            c = self.state.counters.cpu().numpy()
         session.publish(
             "telemetry-counters",
-            {s: tuple(int(v) for v in c[s]) for s in range(self.n_real)})
+            {s: tuple(int(v) for v in counters[s])
+             for s in range(self.n_real)})
         for s in range(self.n_real):
             session.publish(f"FUNcube{s}-bpsk-tune", tunings[s])
-        # every hit of every pending block, in (block, instance, hit) order
-        # (mesh padding instances publish nothing); the masked reads wait
-        # for the card
-        where, windows, corrs = [], [], []
-        with tr.span("drain.readback"):
-            for out in pending:
-                hit = ((torch.arange(out.windows.shape[1],
-                                     device=out.n_hits.device)[None, :]
-                        < out.n_hits[:, None])
-                       & (torch.arange(out.n_hits.shape[0],
-                                       device=out.n_hits.device)
-                          < self.n_real)[:, None])
-                windows.append(out.windows[hit])
-                corrs.append(out.hit_corr[hit])
-                where.append(torch.nonzero(hit)[:, 0])
-            windows = torch.cat(windows)
-        tr.count("drain.hits", len(windows))
-        if not len(windows):
+        if not len(flat):
             return
-        with tr.span("drain.fec"):
-            res = fec_decode(windows)
-        with tr.span("drain.readback"):
-            demod = torch.cat(where).cpu().numpy()
-            corr = torch.cat(corrs).cpu().numpy()
-            ok, rc = res.ok.cpu().numpy(), res.rc.cpu().numpy()
-            payload = res.payload.cpu().numpy()
+        _wait(dev, tr)
+        rc, payload, ok = _unpack(*decoded)
+        payload = payload.copy()          # the frames' own, the block freed
         good = int(ok.sum())
         tr.count("drain.good", good)
         tr.count("drain.failed", len(ok) - good)
-        for j, s in enumerate(demod):
+        corr = hit_corr.reshape(-1)[flat]
+        for j, s in enumerate(flat // max_hits % n):
             session.publish("telemetry-frame", {
                 "demod": int(s),
                 "tuning": tunings[s],
@@ -622,6 +631,79 @@ class TelemetryStage(Stage):
                 "channel_errors": int(rc[j]),
                 "payload": payload[j],
             })
+
+    @staticmethod
+    def _decode(pending: list, flat: np.ndarray, tr) -> tuple:
+        """Enqueue the decode of the pending blocks' windows at the flat
+        (block, instance, hit) indices ``flat`` and the copy of its
+        ``rc``, ``payload`` and ``ok`` to the host, without a wait:
+        (host tensor, parts) for :func:`_unpack`."""
+        from ..fec.decoder import fec_decode
+        windows = torch.stack([o.windows for o in pending]).flatten(0, 2)
+        idx = torch.empty(len(flat), dtype=torch.int64,
+                          pin_memory=windows.is_cuda)
+        idx.numpy()[:] = flat
+        hit = windows.index_select(0, idx.to(windows.device,
+                                              non_blocking=True))
+        with tr.span("drain.fec"):
+            res = fec_decode(hit)
+        parts = [res.rc, res.payload, res.ok]
+        return _to_host(_pack(parts)), parts
+
+    def _shown(self) -> list:
+        """Device tensors a drain reads back with the pending blocks'
+        hits and publishes first (:meth:`_publish_shown`); none here."""
+        return []
+
+    def _publish_shown(self, session: Session, *arrays) -> None:
+        """Publish :meth:`_shown`'s tensors, read back as numpy views of
+        the drain's host block (copy what a listener may keep)."""
+
+
+def _pack(parts: list) -> torch.Tensor:
+    """Tensors of one device as one flat uint8 tensor, each part's bytes
+    in turn (one launch on a card): what one host copy reads back."""
+    return torch.cat([p.reshape(-1).view(torch.uint8) for p in parts])
+
+
+_NUMPY = {torch.bool: np.bool_, torch.uint8: np.uint8,
+          torch.int32: np.int32, torch.int64: np.int64,
+          torch.float32: np.float32}
+
+
+def _unpack(host: torch.Tensor, parts: list) -> list:
+    """:func:`_pack`'s bytes, copied to ``host``, as one numpy view a
+    part with the part's dtype and shape (4-byte parts first keeps each
+    view aligned)."""
+    buf, out, at = host.numpy(), [], 0
+    for p in parts:
+        n = p.numel() * p.element_size()
+        out.append(buf[at:at + n].view(_NUMPY[p.dtype]).reshape(p.shape))
+        at += n
+    return out
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied, without a wait, into a new block of torch's caching
+    host allocator: pinned on a card, plain host memory on the CPU. A
+    card's copy records an event on the block, so the allocator hands it
+    out again only once the copy is done and no reference to it is
+    left."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+    return host.copy_(t, non_blocking=True)
+
+
+def _wait(device: torch.device, tr: StageTimers) -> None:
+    """The drain's one kind of host wait on the card: until everything
+    enqueued on ``device``'s current stream has run (an event's
+    synchronise; on the CPU every copy has run already). Timed in
+    ``drain.readback``, counted in ``drain.waits``."""
+    with tr.span("drain.readback"):
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            done.synchronize()
+    tr.count("drain.waits")
 
 
 class SpectrumTelemetryStage(TelemetryStage):
@@ -686,18 +768,21 @@ class SpectrumTelemetryStage(TelemetryStage):
         self._spec = out[0]          # the waterfall the next drain shows
         super()._queue(out, session)
 
-    def _drain(self, session: Session):
+    def _shown(self) -> list:
+        """Stream 0's natural-order waterfall lines and last peak, Hz and
+        dB, of the latest block (instances share the input stream)."""
         from ..ops.spectrum_fused import waterfall_natural_order
         spec, self._spec = self._spec, None
-        if spec is not None:
-            # stream 0's lines/peak (instances share the input stream)
-            with session.tracer.span("drain.readback"):
-                lines = waterfall_natural_order(spec.wf)[0].cpu().numpy()
-                peak = (int(spec.peak_freq[0, -1]),
-                        float(spec.peak_db[0, -1]))
-            session.publish("waterfall-line", lines)
-            session.publish("fft-peak", peak)
-        super()._drain(session)
+        if spec is None:
+            return []
+        return [waterfall_natural_order(spec.wf)[0], spec.peak_freq[0, -1],
+                spec.peak_db[0, -1]]
+
+    def _publish_shown(self, session: Session, *arrays) -> None:
+        if arrays:
+            lines, freq, db = arrays
+            session.publish("waterfall-line", lines.copy())
+            session.publish("fft-peak", (int(freq), float(db)))
 
 
 def _broadcast(block: CF, n: int) -> CF:

@@ -13,8 +13,10 @@ registered kernel wrapper, and ``SpectrumStage`` captures once, then
 replays, each block read back into memory of its own. Tests marked ``card`` run the
 graphed stages against the eager :func:`bpsk_block_batch` and
 :func:`bpsk_block_batch_spectrum`, the graphed ``SpectrumStage``
-against one with an eager step, and kernel 3 at one FFT block a row
-against the staged pair, on a card, bit for bit, and skip without one:
+against one with an eager step, kernel 3 at one FFT block a row
+against the staged pair, and the graphed telemetry stages' drains
+against the masked-read loop they replaced, on a card, bit for bit, and
+skip without one:
 ``python -m pytest --noconftest -m card tests/test_torch_graph_step.py``
 (this file imports no JAX, so it runs where the JAX package is absent)."""
 
@@ -36,7 +38,7 @@ import jsdr_tpu_torch
 from jsdr_tpu_torch.demod import am_fm
 from jsdr_tpu_torch.demod import bpsk as B
 from jsdr_tpu_torch.fec import _device as fec_tables
-from jsdr_tpu_torch.fec.decoder import fec_check
+from jsdr_tpu_torch.fec.decoder import fec_check, fec_decode
 from jsdr_tpu_torch.fec.encode import encode_fec40
 from jsdr_tpu_torch.fec.rs import decode_rs
 from jsdr_tpu_torch.fec.viterbi import viterbi27_bytes
@@ -978,3 +980,55 @@ def test_spectrum_stage_counts_each_block_once(card):
     assert all(i < 8 for i, r in enumerate(ran) if r != "replay")
     assert ran[0] == "eager" and set(ran[8:]) == {"replay"}
     assert c["spectrum_telemetry.merged"] == n
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cls", [TelemetryStage, SpectrumTelemetryStage])
+def test_graphed_stage_drains_as_the_masked_reads_did(card, cls):
+    """13 blocks of frame trains on two tabs through a graphed stage whose
+    drain makes no synchronising call but its waits (CUDA's sync debug
+    mode raises on one), against a stage of the same class whose drain is
+    the masked-read loop it replaced (``tests/test_torch_drain_readback.
+    py``): the same published stream, topic for topic and byte for byte,
+    through three full drains and ``finish()``'s last; each drain waits on
+    the card once, and once more where it decoded."""
+    from test_torch_drain_readback import _plain, _reference_drain
+
+    n = 13
+    sig = _signal(n)
+    # kernels A and B built and their tables on the card before the drains
+    fec_decode(torch.full((1, 5200), 0x40, dtype=torch.uint8, device=card))
+    torch.cuda.synchronize()
+
+    class Strict(cls):
+        def _drain(self, session):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super()._drain(session)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    class Reference(cls):
+        def _drain(self, session):
+            _reference_drain(self, session)
+
+    streams, counters = [], []
+    for stage_cls in (Strict, Reference):
+        s = Session(source=iter([sig]), block_samples=RATE, device=card)
+        got = []
+        s.pubsub.listen(lambda t, v: got.append((t, v)))
+        assert s.run([stage_cls(B.BpskConfig(rate=RATE), TABS,
+                                device=card)]) == n
+        streams.append([_plain(v) for v in got])
+        counters.append(s.tracer.counters)
+    assert streams[0] == streams[1]
+    topics = [t for (_, t), _ in streams[0]]
+    drains = "".join("d" if t == "telemetry-counters" else
+                     "f" if t == "telemetry-frame" else "" for t in topics)
+    decoded = drains.split("d")[1:]
+    c = counters[0]
+    assert c["drain.runs"] == len(decoded) == 4
+    assert c["telemetry.graph_replays"] > 0
+    assert sum(map(bool, decoded)) >= 2
+    assert c["drain.waits"] == c["drain.runs"] + sum(map(bool, decoded))
+    assert c["drain.hits"] == sum(map(len, decoded))
